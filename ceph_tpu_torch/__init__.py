@@ -11,7 +11,11 @@ Subpackages ported so far:
   ec       — erasure-code interface, plugin registry, the RS/Cauchy codec
              (plugins tpu, isa, jerasure matrix techniques)
   osd      — EncodeService: concurrent objects coalesced into one planar launch
-  tools    — ec_bench, the ceph_erasure_code_benchmark drop-in
+  crush    — CRUSH placement: the scalar mapper and the batched torch_mapper
+             with its hand-written straw2 choose kernel (ops/crush_cuda,
+             csrc/crush_choose.cu), and CrushTester
+  tools    — ec_bench, the ceph_erasure_code_benchmark drop-in; crushtool
+             and crush_bench
 
 Device rule: entry points run on `cuda` unless the caller passes
 `device="cpu"`; asking for `cuda` where none is present raises.

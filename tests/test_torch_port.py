@@ -35,6 +35,9 @@ def imported_modules(path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = port_files()
     assert len(files) > 10
+    for part in ("crush/torch_mapper.py", "crush/tester.py", "ops/crush_cuda.py",
+                 "tools/crushtool.py", "tools/crush_bench.py"):
+        assert os.path.join(REPO, "ceph_tpu_torch", *part.split("/")) in files
     bad = [
         (os.path.relpath(path, REPO), mod)
         for path in files
@@ -44,7 +47,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert bad == []
 
 
-def test_default_device_entry_points_raise_without_a_card():
+def test_default_device_entry_points_raise_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
     from ceph_tpu_torch.ec.registry import factory
@@ -59,6 +62,27 @@ def test_default_device_entry_points_raise_without_a_card():
         EncodeService()
     with pytest.raises(RuntimeError, match="cuda"):
         bitplane_matrix([[1, 2]])
+
+    from ceph_tpu_torch.crush import torch_mapper
+    from ceph_tpu_torch.crush.compiler import decompile_crushmap
+    from ceph_tpu_torch.crush.tester import CrushTester
+    from ceph_tpu_torch.tools import crush_bench, crushtool
+
+    cmap = crush_bench.build_map(100)
+    with pytest.raises(RuntimeError, match="cuda"):
+        torch_mapper.compile_map(cmap)
+    with pytest.raises(RuntimeError, match="cuda"):
+        torch_mapper.compile_map_cached(cmap)
+    with pytest.raises(RuntimeError, match="cuda"):
+        CrushTester(cmap)
+    path = tmp_path / "map.txt"
+    path.write_text(decompile_crushmap(cmap))
+    with pytest.raises(RuntimeError, match="cuda"):
+        crushtool.main(["-i", str(path), "--test", "--num-rep", "3"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        crush_bench.main(["--pgs", "16", "--osds", "100"])
+    # the CPU is there when named
+    assert CrushTester(cmap, device="cpu").device.type == "cpu"
 
 
 def test_explicit_cpu_and_unknown_devices():
