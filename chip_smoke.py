@@ -3,13 +3,18 @@
 
     python3 chip_smoke.py
 
-Two main paths, each driven with the launch counts zeroed just before it and
-read just after. The RS erasure-code data path as an OSD meets it: the
+Three main paths, each driven with the launch counts zeroed just before it
+and read just after. The RS erasure-code data path as an OSD meets it: the
 plugin registry (`factory("isa", k=8 m=3 technique=cauchy)`), the batching
 `EncodeService`, and the hand-written GF(2^8) CUDA kernel under both. Then
 CRUSH placement as `crushtool --test` meets it (BASELINE config 5: 1M x over
 a 10k-OSD straw2 map): `CrushTester`, the port's crushtool and
-`torch_mapper.map_rule`, over the hand-written straw2 choose kernel. Phases:
+`torch_mapper.map_rule`, over the hand-written straw2 choose kernel. Then
+placement balancing at the JAX package's own balancer scale (bench.py's
+_balance_line: 1024 OSDs, a replicated pool of 262,144 PGs x 3 and an EC
+pool of 32,768 PGs x 6): the port's psim scenario (`OSDMap.pool_mappings`
+over the choose kernel, `calc_pg_upmaps` over the hand-written move-scoring
+kernel) and the mgr `BalancerModule` in upmap and crush-compat modes. Phases:
 
   1. the card: name, count, and nvidia-smi's name and power limit;
   2. build every kernel under ceph_tpu_torch/csrc with nvcc (ptxas report);
@@ -43,7 +48,32 @@ a 10k-OSD straw2 map): `CrushTester`, the port's crushtool and
      the kernel, times the integer operations per draw in its source, over
      the INT32 rate), its plain version, map_rule mappings/s, and the
      tester run split into mapping and host aggregation;
-  10. a `kernels` JSON line; 11. the `ok` JSON line, last.
+  10. the upmap move-scoring kernel against its plain torch version on the
+      card, bit-exact (gain as float32 bits): round 1 of calc_pg_upmaps on
+      the balancer cell's map, its inputs rebuilt as score_round builds
+      them (whole-pool launches, as the main path makes, and the JAX
+      package's chunks), and crafted chunks (gain ties, all-illegal rows,
+      NONE slots, unreachable domains, 11-wide rows, 10,000 and 30,000
+      OSDs);
+  11. the balancer main path, counts zeroed just before: psim --scenario
+      --json twice (byte-identical reports) and once with --measure, then
+      BalancerModule.run_once in upmap and crush-compat modes through an
+      in-process mon client; then its outputs: every PG an upmap touched
+      and 4096 sampled PGs per pool equal the scalar pipeline (worker
+      processes), one replica per host, no duplicate OSD, the move budget
+      and spread held, and the committed compat weight-set maps as the
+      run-time overlay of the same weights does;
+  12. times: the scoring kernel over one round (CUDA events) beside its
+      operation bound (the integer and float32 operations the function
+      needs on the round's data, each at its own rate), its plain version,
+      its two ways of reading the per-OSD arrays (staged in shared memory
+      or from global memory), calc_pg_upmaps split into pool
+      mapping, scoring and host greedy/revalidation, the same pass under
+      torch.profiler (device busy time, idle share), the scenario's PGs
+      mapped per second, and each crush-compat iteration;
+  13. no process this script started is left (nvcc, nvidia-smi and the
+      worker processes are all waited for), then a `kernels` JSON line;
+  14. the `ok` JSON line, last.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
 It needs a CUDA card and the repository around it; with neither it fails.
@@ -55,8 +85,8 @@ import asyncio
 import contextlib
 import io
 import json
-import multiprocessing
 import os
+import pickle
 import subprocess
 import sys
 import time
@@ -82,6 +112,8 @@ SCALAR_CHECK = 4096
 #: H100 SXM: 132 SMs x 64 INT32 lanes per SM per clock x 1.98 GHz boost
 #: (NVIDIA Hopper architecture whitepaper)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+#: H100 SXM float32 outside the tensor cores (NVIDIA's data sheet)
+FP32_OPS_PER_S = 67e12
 #: integer operations of one straw2 draw in csrc/crush_choose.cu, counted
 #: from the source on its shortest path (a 64-bit operation counts once)
 OPS_PER_DRAW = {
@@ -446,6 +478,63 @@ def phase_crush_kernels(cc, tm, cb, T, big) -> int:
     return max(errs)
 
 
+#: what a worker process runs: chip_smoke.<fn>(job) from a pickle on stdin,
+#: its result pickled to stdout (anything the job prints goes to stderr)
+WORKER = """import pickle, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+fn, job = pickle.load(sys.stdin.buffer)
+out, sys.stdout = sys.stdout.buffer, sys.stderr
+pickle.dump(getattr(chip_smoke, fn)(job), out)
+"""
+
+
+def in_workers(fn: str, jobs: list) -> list:
+    """chip_smoke.<fn>(job) for each job, each in a Python process of its
+    own, all started together; returns the results in order. Every process
+    is waited for, and killed first if one fails. Plain subprocesses rather
+    than multiprocessing, whose spawn start method leaves a resource-tracker
+    process behind the script."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    try:
+        for _ in jobs:
+            procs.append(subprocess.Popen([sys.executable, "-c", WORKER, here],
+                                          stdin=subprocess.PIPE, stdout=subprocess.PIPE))
+        for proc, job in zip(procs, jobs):
+            pickle.dump((fn, job), proc.stdin)
+            proc.stdin.close()
+        results = []
+        for proc in procs:
+            raw = proc.stdout.read()
+            if proc.wait() != 0:
+                raise AssertionError(f"worker {fn} exited {proc.returncode}")
+            results.append(pickle.loads(raw))
+        return results
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            proc.stdout.close()
+
+
+def own_children() -> list[str]:
+    """Every process whose parent is this one, running or not yet reaped
+    (from /proc), as "pid (name)"."""
+    found = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        head, tail = stat[:stat.rindex(")") + 1], stat[stat.rindex(")") + 2:].split()
+        if int(tail[1]) == os.getpid():
+            found.append(head)
+    return found
+
+
 def _scalar_rows(job):
     """Worker: the port's scalar mapper over x in [lo, hi)."""
     from ceph_tpu_torch.crush import mapper as sm
@@ -530,20 +619,17 @@ def phase_crush_outputs(tm, big, main) -> tuple[int, dict]:
 
     workers = min(8, os.cpu_count() or 1)
     step = -(-SCALAR_CHECK // workers)
-    with multiprocessing.get_context("spawn").Pool(workers) as pool:
-        for rule, result_max in CRUSH_RULES:
-            jobs = [(big, rule, result_max, lo, min(lo + step, SCALAR_CHECK))
-                    for lo in range(0, SCALAR_CHECK, step)]
-            want = [row for part in pool.map(_scalar_rows, jobs) for row in part]
-            rows, lengths = main[rule]["rows"], main[rule]["lengths"]
-            bad = [x for x in range(SCALAR_CHECK)
-                   if rows[x, :lengths[x]].tolist() != want[x]]
-            print(f"  rule {rule}: first {SCALAR_CHECK} x equal the scalar mapper: "
-                  f"{not bad}", flush=True)
-            if bad:
-                raise AssertionError(f"rule {rule}: x {bad[0]} differs from do_rule")
-        pool.close()
-        pool.join()
+    for rule, result_max in CRUSH_RULES:
+        jobs = [(big, rule, result_max, lo, min(lo + step, SCALAR_CHECK))
+                for lo in range(0, SCALAR_CHECK, step)]
+        want = [row for part in in_workers("_scalar_rows", jobs) for row in part]
+        rows, lengths = main[rule]["rows"], main[rule]["lengths"]
+        bad = [x for x in range(SCALAR_CHECK)
+               if rows[x, :lengths[x]].tolist() != want[x]]
+        print(f"  rule {rule}: first {SCALAR_CHECK} x equal the scalar mapper: "
+              f"{not bad}", flush=True)
+        if bad:
+            raise AssertionError(f"rule {rule}: x {bad[0]} differs from do_rule")
     for rule, result_max in CRUSH_RULES:
         sizes = np.bincount(main[rule]["lengths"], minlength=result_max + 1)
         if sizes[result_max] != CRUSH_X or not (main[rule]["rows"] < CRUSH_OSDS).all():
@@ -594,23 +680,536 @@ def phase_crush_times(cc, tm, big, main, plain_ms, smi: str) -> dict:
     return stats
 
 
+# -- the balancer path ------------------------------------------------------------
+
+BAL_OSDS = 1024
+BAL_REP_PGS = 262_144
+BAL_EC_PGS = 32_768
+BAL_CHANGES = 2048
+BAL_SAMPLE = 4096
+BAL_SCENARIO = dict(n_osd=BAL_OSDS, rep_pg_num=BAL_REP_PGS, ec_pg_num=BAL_EC_PGS,
+                    seed=1, epochs=1, max_changes=BAL_CHANGES)
+PSIM_ARGV = ["--scenario", "--osds", str(BAL_OSDS), "--rep-pgs", str(BAL_REP_PGS),
+             "--ec-pgs", str(BAL_EC_PGS), "--epochs", "1", "--seed", "1",
+             "--max-changes", str(BAL_CHANGES), "--json", "--device", "cuda"]
+#: operations upmap_score's function needs, as (integer, float32) per
+#: occurrence, by how far a candidate (row, slot s, target t) gets through
+#: its rules (the kernel's loop control, shuffle reduction and loads are
+#: not counted); score_ops counts the occurrences on this run's inputs
+SCORE_OPS = {
+    "target": (2, 1),     # per OSD: valid && dom >= 0; tdev < -max_dev
+    "source": (4, 1),     # per (row, slot): placed, domain >= 0, &&, the
+                          # slot's occupied-domain id; fdev > max_dev
+    "member": (4, 0),     # per (row, valid target, slot): == t and | (t in
+                          # the row), == tdom and | (t's domain occupied)
+    "candidate": (2, 0),  # source ok, t valid and not in the row: the domain
+                          # rule (same domain | domain not occupied)
+    "dom_ok": (0, 2),     # domain rule held: d = fdev - tdev, d > 1
+    "d_ok": (1, 0),       # d > 1: the band, fdev > max_dev | tdev < -max_dev
+    "legal": (0, 2),      # legal: g = d - 1, the argmax compare
+}
+
+
+def score_ops(up, dev, valid, dom, max_dev, chunk: int) -> tuple[int, int]:
+    """(integer, float32) operations upmap_score's function needs on these
+    inputs: SCORE_OPS times how often a candidate gets that far, from the
+    masks of the plain version, `chunk` rows at a time."""
+    c, s = up.shape
+    n = dev.shape[0] - 1
+    max_dev = torch.tensor(max_dev, dtype=torch.float32, device=dev.device)
+    tdev, tdom = dev[:-1], dom[:-1]
+    tval = valid[:-1] & (tdom >= 0)
+    seen = {"target": n, "source": c * s, "member": c * int(tval.sum()) * s}
+    targets = torch.arange(n, dtype=up.dtype, device=up.device)
+    for lo in range(0, c, chunk):
+        frm = up[lo:lo + chunk]
+        fc = torch.where(frm >= 0, frm, n).clamp(max=n).long()
+        fdev, fdom = dev[fc], dom[fc]
+        reach = tval[None, :] & ~(frm[:, :, None] == targets).any(dim=1)        # (C, N)
+        occ = (torch.where(frm >= 0, fdom, -2)[:, :, None] == tdom).any(dim=1)   # (C, N)
+        src_ok = (frm >= 0) & (fdom >= 0)                                         # (C, S)
+        cand = src_ok[:, :, None] & reach[:, None, :]                             # (C, S, N)
+        dom_ok = cand & (~occ[:, None, :] | (fdom[:, :, None] == tdom))
+        d_ok = dom_ok & (fdev[:, :, None] - tdev > 1.0)
+        legal = d_ok & ((fdev > max_dev)[:, :, None] | (tdev < -max_dev))
+        for k, mask in (("candidate", cand), ("dom_ok", dom_ok), ("d_ok", d_ok),
+                        ("legal", legal)):
+            seen[k] = seen.get(k, 0) + int(mask.sum())
+    return (sum(SCORE_OPS[k][0] * v for k, v in seen.items()),
+            sum(SCORE_OPS[k][1] * v for k, v in seen.items()))
+
+
+def round1_inputs(balance, tm, m) -> tuple[list[tuple[str, tuple]], float]:
+    """Round 1 of calc_pg_upmaps on map m, the scorer's inputs on the card
+    as its score_round builds them: (pool name, (up, dev, valid, dom,
+    max_dev)) per pool, and the spread the pass starts from."""
+    n = m.max_osd
+    weights = np.asarray(m.osd_weight * (m.osd_exists & m.osd_up), dtype=np.int64)
+    counts = np.zeros(n, dtype=np.int64)
+    total = 0
+    rows = {}
+    for pid in sorted(m.pools):
+        pool = m.pools[pid]
+        total += pool.pg_num * pool.size
+        rows[pid] = np.array(m.pool_mappings(pid), dtype=np.int32)
+        counts += np.bincount(rows[pid][rows[pid] != tm.CRUSH_ITEM_NONE], minlength=n)[:n]
+    target = weights.astype(np.float64) * (total / int(weights.sum()))
+    considered = (weights > 0) | (counts > 0)
+    spread = float(np.abs((counts - target)[considered]).max())
+    dev = torch.from_numpy(np.concatenate(
+        [(counts - target).astype(np.float32), [np.float32(0.0)]])).cuda()
+    valid = torch.from_numpy(np.concatenate([weights > 0, [False]])).cuda()
+    out = []
+    for pid, r in rows.items():
+        pool = m.pools[pid]
+        rule = m.find_rule(pool.crush_rule, pool.type, pool.size)
+        dom = balance._dense_domains(balance.rule_failure_domains(m.crush, rule, n))
+        up = torch.from_numpy(np.where(r == tm.CRUSH_ITEM_NONE, -1, r)).cuda()
+        dom = torch.from_numpy(np.concatenate([dom, [np.int32(-2)]])).cuda()
+        out.append(("EC pool" if pool.is_erasure() else "replicated pool",
+                    (up, dev, valid, dom, 1.0)))
+    return out, spread
+
+
+def score_err(name, got, want, quiet=False) -> float:
+    """Kernel vs plain scores: bit-exact or the phase fails; returns the max
+    abs difference (gain where both are finite, from and to)."""
+    (g, f, t), (pg, pf, pt) = got, want
+    equal = (torch.equal(g.view(torch.int32), pg.view(torch.int32))
+             and torch.equal(f, pf) and torch.equal(t, pt))
+    err = 0.0
+    if g.numel():
+        fin = torch.isfinite(g) & torch.isfinite(pg)
+        if not torch.equal(torch.isfinite(g), torch.isfinite(pg)):
+            err = float("inf")
+        elif bool(fin.any()):
+            err = float((g[fin] - pg[fin]).abs().max())
+        err = max(err, float((f.long() - pf.long()).abs().max()),
+                  float((t.long() - pt.long()).abs().max()))
+    if not quiet or not equal:
+        legal = int(torch.isfinite(pg).sum())
+        print(f"  {name}: rows {g.numel()}, rows with a legal move {legal}, "
+              f"max_abs_err {err}, equal {equal}", flush=True)
+    if not equal:
+        raise AssertionError(f"upmap_score kernel != plain for {name}")
+    return err
+
+
+def plain_chunks(balance, args, chunk: int):
+    up = args[0]
+    parts = [balance.score_chunk_plain(up[lo:lo + chunk], *args[1:])
+             for lo in range(0, up.shape[0], chunk)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def crafted_scores(balance, crush_bench, round1):
+    """Chunks the scenario does not make: (name, args) on the card."""
+    rng = np.random.default_rng(SEED)
+    (up3, dev, valid, dom3, _), (_, _, _, dom6, _) = round1
+    n = dev.shape[0] - 1
+
+    def cuda(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    def dev_of(counts, target):
+        return cuda(np.concatenate([(counts - target).astype(np.float32), [np.float32(0)]]))
+
+    rows = up3[:32768].contiguous()
+    ties = dev_of(rng.integers(958, 963, n), 960.5)  # equal weights: integer gains tie
+    cases = [("ties, equal weights", (rows, ties, valid, dom3, 1.0)),
+             ("ties, max_dev 0", (rows, ties, valid, dom3, 0.0)),
+             ("all-illegal (flat deviations)", (rows, torch.zeros_like(dev), valid, dom3, 1.0))]
+    holes = rows.clone()
+    holes[cuda(rng.random(holes.shape) < 0.25)] = -1
+    holes[:64] = -1
+    cases.append(("NONE slots", (holes, ties, valid, dom3, 0.5)))
+    unreachable = dom3.clone()
+    unreachable[:n][cuda(rng.random(n) < 0.3)] = -1
+    cases.append(("unreachable (-1) domains", (rows, ties, valid, unreachable, 1.0)))
+    hosts = np.argsort(rng.random((8192, n // 8)), axis=1)[:, :11]
+    wide = (hosts * 8 + rng.integers(0, 8, hosts.shape)).astype(np.int32)
+    cases.append(("S = 11 rows", (cuda(wide), ties, valid, dom6, 1.0)))
+
+    big = crush_bench.build_map(CRUSH_OSDS)
+    dom_big = balance._dense_domains(balance.rule_failure_domains(big, 0, CRUSH_OSDS))
+    hosts = np.argsort(rng.random((4096, CRUSH_OSDS // 50)), axis=1)[:, :3]
+    up_big = (hosts * 50 + rng.integers(0, 50, hosts.shape)).astype(np.int32)
+    cases.append(("n = 10,000 (crush_bench.build_map)", (
+        cuda(up_big), dev_of(rng.integers(20, 42, CRUSH_OSDS), 30.7),
+        cuda(np.concatenate([rng.random(CRUSH_OSDS) > 0.05, [False]])),
+        cuda(np.concatenate([dom_big, [np.int32(-2)]]).astype(np.int32)), 1.0)))
+    # past the kernel's shared-memory staging: targets read from global memory
+    wide_n = 30_000
+    hosts = np.argsort(rng.random((2048, wide_n // 50)), axis=1)[:, :3]
+    cases.append((f"n = {wide_n:,} (targets not staged in shared memory)", (
+        cuda((hosts * 50 + rng.integers(0, 50, hosts.shape)).astype(np.int32)),
+        dev_of(rng.integers(20, 42, wide_n), 30.7),
+        cuda(np.concatenate([rng.random(wide_n) > 0.05, [False]])),
+        cuda(np.concatenate([np.arange(wide_n) // 50, [-2]]).astype(np.int32)), 1.0)))
+    return cases
+
+
+def phase_upmap_kernels(uc, balance, tm, build_cluster, crush_bench):
+    """Phase 10: the scoring kernel against its plain version on the card."""
+    t0 = time.perf_counter()
+    m = build_cluster(BAL_OSDS, rep_pg_num=BAL_REP_PGS, ec_pg_num=BAL_EC_PGS, device="cuda")
+    pools, spread = round1_inputs(balance, tm, m)
+    print(f"  round 1 of calc_pg_upmaps on the balancer cell's map (what "
+          f"BalancerModule.run_once scores first): inputs rebuilt in "
+          f"{time.perf_counter() - t0:.4f} s, spread before {spread}", flush=True)
+    errs = []
+    for name, args in pools:
+        chunk = balance.plain_chunk_rows(args[0].shape[1], args[1].shape[0] - 1)
+        want = plain_chunks(balance, args, chunk)
+        errs.append(score_err(f"round 1, {name}: the main path's whole-pool launch "
+                              f"{tuple(args[0].shape)}", uc.upmap_score(*args), want))
+        up = args[0]
+        chunk_errs = [
+            score_err(f"chunk {lo}", uc.upmap_score(up[lo:lo + chunk], *args[1:]),
+                      tuple(w[lo:lo + chunk] for w in want), quiet=True)
+            for lo in range(0, up.shape[0], chunk)]
+        print(f"  round 1, {name}: {len(chunk_errs)} chunks of {chunk} rows (the JAX "
+              "package's chunking), each launched alone: equal True", flush=True)
+        errs += chunk_errs
+    round1 = [args for _, args in pools]
+    for name, args in crafted_scores(balance, crush_bench, round1):
+        errs.append(score_err(name, uc.upmap_score(*args), balance.score_chunk_plain(*args)))
+    return max(errs), round1, spread
+
+
+class FakeMon:
+    """The mon client BalancerModule talks to, in process: the committed map
+    and the two commands the module sends, applied as the mon applies them."""
+
+    def __init__(self, osdmap, compile_crushmap):
+        self.osdmap, self.compile, self.commands = osdmap, compile_crushmap, []
+
+    async def wait_for_map(self):
+        return self.osdmap
+
+    async def command(self, name, args):
+        self.commands.append(name)
+        m = self.osdmap
+        if name == "osd pg-upmap-items":
+            for key, items in args["mappings"].items():
+                pg = tuple(int(v) for v in key.split("."))
+                if items:
+                    m.pg_upmap_items[pg] = [tuple(p) for p in items]
+                else:
+                    m.pg_upmap_items.pop(pg, None)
+            m.epoch += 1
+            return {"applied": len(args["mappings"])}
+        if name == "osd crush set":
+            m.crush = self.compile(args["crush_text"])
+            m.invalidate_compiled()
+            m.epoch += 1
+            return {}
+        raise ValueError(f"unexpected mon command {name}")
+
+
+def run_psim(psim, argv) -> tuple[str, float]:
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = psim.main(argv)
+    secs = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"psim {' '.join(argv)} exited {rc}")
+    return buf.getvalue(), secs
+
+
+def phase_balancer_main(psim, BalancerModule, build_cluster, compile_crushmap) -> dict:
+    """Phase 11: psim's scenario and both balancer modes, as a user runs them."""
+    first, s1 = run_psim(psim, PSIM_ARGV)
+    second, s2 = run_psim(psim, PSIM_ARGV)
+    print(f"  psim {' '.join(PSIM_ARGV)}: {s1:.4f} s, again {s2:.4f} s, reports "
+          f"byte-identical {first == second}", flush=True)
+    if first != second:
+        raise AssertionError("psim's scenario report is not deterministic")
+    report = json.loads(first)
+    print(f"  report: pg_instances {report['pg_instances']}, epochs "
+          f"{[(e['pgs_moved'], len(e['events'])) for e in report['epochs']]}, "
+          f"balance {report['balance']}, final_spread {report['final_spread']}", flush=True)
+    measured, s3 = run_psim(psim, PSIM_ARGV + ["--measure"])
+    timing = json.loads(measured)["timing"]
+    print(f"  psim --measure: {s3:.4f} s, timing {timing}", flush=True)
+
+    out = {"report": report, "timing": timing}
+    for mode in ("upmap", "crush-compat"):
+        live = build_cluster(BAL_OSDS, rep_pg_num=BAL_REP_PGS, ec_pg_num=BAL_EC_PGS,
+                             device="cuda")
+        mon = FakeMon(live, compile_crushmap)
+        module = BalancerModule(mon, device="cuda")
+        t0 = time.perf_counter()
+        res = asyncio.run(module.run_once(mode=mode, max_deviation=1.0,
+                                          max_changes=BAL_CHANGES))
+        secs = time.perf_counter() - t0
+        shown = {k: v for k, v in res.items() if k != "mappings"}
+        print(f"  BalancerModule.run_once(mode={mode!r}): {secs:.4f} s, {shown}, "
+              f"mon commands {mon.commands}", flush=True)
+        out[mode] = dict(live=live, result=res, seconds=secs, perf=module.perf.dump())
+    return out
+
+
+def _scalar_up_rows(job):
+    """Worker: the port's scalar pipeline for each (pool, ps) of the job."""
+    from ceph_tpu_torch.osd.osdmap import OSDMap
+
+    raw, pgs = job
+    m = OSDMap.decode(raw, device="cpu")
+    return [m.pg_to_up_acting_osds(pid, ps)[0] for pid, ps in pgs]
+
+
+def check_balancer_outputs(tm, balance, OSDMap, bal, spread1) -> None:
+    """Phase 11b: the main path's outputs against the scalar pipeline and the
+    placement rules; `spread1` is the spread of phase 10's rebuilt round 1."""
+    if bal["upmap"]["result"]["spread_before"] != spread1:
+        raise AssertionError("phase 10's round 1 is not the balancer module's: spread "
+                             f"{spread1} != {bal['upmap']['result']['spread_before']}")
+    for name, b in (("psim scenario", bal["report"]["balance"]),
+                    ("BalancerModule upmap", bal["upmap"]["result"])):
+        if not (0 < b["changes"] <= BAL_CHANGES and b["spread_after"] <= b["spread_before"]):
+            raise AssertionError(f"{name}: changes {b['changes']}, spread "
+                                 f"{b['spread_before']} -> {b['spread_after']}")
+    live = bal["upmap"]["live"]
+    if len(live.pg_upmap_items) != len(bal["upmap"]["result"]["mappings"]):
+        raise AssertionError("the mon did not commit the balancer's mappings")
+    rng = np.random.default_rng(SEED)
+    pgs = set(live.pg_upmap_items)
+    for pid, pool in live.pools.items():
+        pgs |= {(pid, int(ps)) for ps in rng.choice(pool.pg_num, BAL_SAMPLE, replace=False)}
+    pgs = sorted(pgs)
+    rows = {pid: live.pool_mappings(pid) for pid in live.pools}
+    workers = min(8, os.cpu_count() or 1)
+    step = -(-len(pgs) // workers)
+    raw = live.encode()
+    t0 = time.perf_counter()
+    parts = in_workers("_scalar_up_rows", [(raw, pgs[lo:lo + step])
+                                           for lo in range(0, len(pgs), step)])
+    want = [up for part in parts for up in part]
+    bad = []
+    for (pid, ps), up in zip(pgs, want):
+        row = np.full(live.pools[pid].size, tm.CRUSH_ITEM_NONE, np.int32)
+        row[:len(up)] = up
+        if not np.array_equal(rows[pid][ps], row):
+            bad.append((pid, ps))
+    print(f"  {len(live.pg_upmap_items)} upmapped PGs + {BAL_SAMPLE} sampled per pool: "
+          f"{len(pgs)} pool_mappings rows equal the scalar pipeline: {not bad} "
+          f"({workers} worker processes, {time.perf_counter() - t0:.2f} s)", flush=True)
+    if bad:
+        raise AssertionError(f"pool_mappings differs from the scalar pipeline at {bad[:5]}")
+    for pid, pool in live.pools.items():
+        rule = live.find_rule(pool.crush_rule, pool.type, pool.size)
+        host = balance.rule_failure_domains(live.crush, rule, live.max_osd)
+        for ps in {ps for p, ps in pgs if p == pid}:
+            placed = [int(o) for o in rows[pid][ps] if o != tm.CRUSH_ITEM_NONE]
+            if len(placed) != pool.size or len(set(placed)) != len(placed) \
+                    or len({int(host[o]) for o in placed}) != len(placed):
+                raise AssertionError(f"pg {pid}.{ps} {placed}: not one OSD per host")
+    print("  every checked PG: full size, no duplicate OSD, one replica per host: True",
+          flush=True)
+
+    res, live = bal["crush-compat"]["result"], bal["crush-compat"]["live"]
+    if not (res["changes"] > 0 and res["spread_after"] < res["spread_before"]):
+        raise AssertionError(f"crush-compat made no progress: {res}")
+    args = live.crush.choose_args
+    straw2 = [bid for bid, b in live.crush.buckets.items() if b.items]
+    if sorted(args) != sorted(straw2):
+        raise AssertionError("the committed map lacks a compat weight-set")
+    # the committed weight-sets, compiled, map as the run-time overlay of
+    # the same weights over the map compiled without them
+    bare = OSDMap.decode(live.encode(), device="cuda")
+    bare.crush.choose_args, bare.crush.choose_args_maps = {}, {}
+    bare.invalidate_compiled()
+    rt = tm.runtime_weight_arrays(bare._compile(), {b: a.weight_set for b, a in args.items()})
+    counts = np.zeros(live.max_osd, np.int64)
+    for pid in live.pools:
+        got = live.pool_mappings(pid)
+        if not np.array_equal(got, bare.pool_mappings(pid, runtime_weights=rt)):
+            raise AssertionError(f"pool {pid}: compiled weight-set != run-time overlay")
+        counts += np.bincount(got[got != tm.CRUSH_ITEM_NONE], minlength=live.max_osd)
+    expect = counts.sum() / live.max_osd
+    print(f"  crush-compat: {len(args)} weight-sets committed; the committed map equals "
+          f"the run-time overlay of its weights on both pools: True; its spread "
+          f"{float(np.abs(counts - expect).max()):.4f} (module's best iterate "
+          f"{res['spread_after']:.4f}, before {res['spread_before']:.4f}; the text "
+          "form keeps 3 decimals of each weight)", flush=True)
+
+
+def profiled(fn) -> tuple[float, dict]:
+    """Runs fn under torch.profiler; returns its host-clock seconds and
+    {name: (count, ms)} of the kernels and copies the card ran meanwhile."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy: dict[str, tuple[int, float]] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, ms = busy.get(e.name, (0, 0.0))
+            busy[e.name] = (n + 1, ms + e.device_time_total / 1e3)
+    return wall, busy
+
+
+def phase_balancer_times(uc, balance, build_cluster, BalancerModule, OSDMap,
+                         compile_crushmap, round1, bal, smi) -> dict:
+    """Phase 12: the scoring kernel over one round beside its bound and its
+    plain version, calc_pg_upmaps split, and each crush-compat iteration."""
+    ms = cuda_ms(lambda: [uc.upmap_score(*a) for a in round1], 10)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    plain_chunks(balance, round1[0], 1 << 13)
+    start.record()
+    for a in round1:
+        plain_chunks(balance, a, 1 << 13)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    candidates = sum(a[0].shape[0] * a[0].shape[1] * (a[1].shape[0] - 1) for a in round1)
+    int_ops = fp_ops = 0
+    for a in round1:
+        i, f = score_ops(*a, chunk=balance.plain_chunk_rows(a[0].shape[1], a[1].shape[0] - 1))
+        int_ops, fp_ops = int_ops + i, fp_ops + f
+    moved = sum(a[0].numel() * 4 + a[1].numel() * 9 + a[0].shape[0] * 12 for a in round1)
+    # the SM runs integer and float32 operations in separate pipes
+    int_ms = int_ops / INT32_OPS_PER_S * 1e3
+    fp_ms = fp_ops / FP32_OPS_PER_S * 1e3
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(int_ms, fp_ms, bytes_ms)
+    print(f"  [{smi}] upmap_score, one round ({' + '.join(str(tuple(a[0].shape)) for a in round1)} "
+          f"rows x {round1[0][1].shape[0] - 1} OSDs = {candidates} candidates): kernel "
+          f"{ms:.4f} ms ({candidates / ms / 1e6:.1f} G candidates/s); the function needs "
+          f"{int_ops} integer ops / {INT32_OPS_PER_S:.4g} ops/s = {int_ms:.4f} ms and "
+          f"{fp_ops} float32 ops / {FP32_OPS_PER_S:.4g} ops/s = {fp_ms:.4f} ms "
+          f"({(int_ops + fp_ops) / candidates:.3f} per candidate); bound {bound_ms:.4f} ms "
+          f"(bytes {bytes_ms:.5f} ms for {moved} B), share {bound_ms / ms:.3f}; plain "
+          f"{plain_ms:.1f} ms; library call: none", flush=True)
+
+    # the two ways the kernel reads the per-OSD arrays, alternated at this
+    # cell's n: staged in each block's shared memory, or from global memory
+    lib = uc._lib()
+    outs = [tuple(torch.empty(a[0].shape[0], dtype=dt, device="cuda")
+                  for dt in (torch.float32, torch.int32, torch.int32)) for a in round1]
+    want = [uc.upmap_score(*a) for a in round1]
+
+    def launch(staged: int) -> None:
+        stream = torch.cuda.current_stream().cuda_stream
+        for (up, dev, valid, dom, max_dev), (g, f, t) in zip(round1, outs):
+            err = lib.upmap_score_launch(
+                up.data_ptr(), dev.data_ptr(), valid.data_ptr(), dom.data_ptr(),
+                float(np.float32(max_dev)), dev.shape[0] - 1, up.shape[1], up.shape[0],
+                g.data_ptr(), f.data_ptr(), t.data_ptr(), staged, stream)
+            if err:
+                raise RuntimeError(f"upmap_score_launch(staged={staged}): CUDA error {err}")
+
+    variant = {1: [], 0: []}
+    for staged in (1, 0, 1, 0):
+        variant[staged].append(cuda_ms(lambda: launch(staged), 10))
+        for o, w in zip(outs, want):
+            score_err(f"staged={staged}", o, w, quiet=True)
+    print(f"  [{smi}] upmap_score per-OSD arrays, one round, alternated: staged in shared "
+          f"memory {', '.join(f'{x:.4f}' for x in variant[1])} ms; read from global memory "
+          f"{', '.join(f'{x:.4f}' for x in variant[0])} ms; both equal the plain version",
+          flush=True)
+
+    m = build_cluster(BAL_OSDS, rep_pg_num=BAL_REP_PGS, ec_pg_num=BAL_EC_PGS, device="cuda")
+    for pid in m.pools:
+        m.pool_mappings(pid)  # the compile cache is warm, as on a balancer tick
+    map_s = []
+    real = m.pool_mappings
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        map_s.append(time.perf_counter() - t0)
+        return out
+
+    m.pool_mappings = timed
+    t0 = time.perf_counter()
+    res = balance.calc_pg_upmaps(m, max_deviation=1.0, max_changes=BAL_CHANGES)
+    total = time.perf_counter() - t0
+    greedy = total - sum(map_s) - res.score_seconds
+    print(f"  [{smi}] calc_pg_upmaps ({BAL_OSDS} OSDs, {res.pgs} PG instances, budget "
+          f"{BAL_CHANGES}): {total:.4f} s = pool mapping {sum(map_s):.4f} s "
+          f"({len(map_s)} pools) + scoring {res.score_seconds:.4f} s ({res.rounds} rounds, "
+          f"{res.launches - len(map_s)} kernel launches, ~{res.rounds * ms:.1f} ms of kernel; "
+          f"the rest copies and candidate lists) + host greedy/revalidation {greedy:.4f} s; "
+          f"{res.changes} moves, spread {res.spread_before:.4f} -> {res.spread_after:.4f}",
+          flush=True)
+    # the same pass on a fresh map under torch.profiler: how long the card
+    # is busy (kernels and copies) against the host clock
+    m = build_cluster(BAL_OSDS, rep_pg_num=BAL_REP_PGS, ec_pg_num=BAL_EC_PGS, device="cuda")
+    for pid in m.pools:
+        m.pool_mappings(pid)
+    wall, busy = profiled(
+        lambda: balance.calc_pg_upmaps(m, max_deviation=1.0, max_changes=BAL_CHANGES))
+    busy_ms = sum(ms for _, ms in busy.values())
+    top = sorted(busy.items(), key=lambda kv: -kv[1][1])[:4]
+    idle = f"{1 - busy_ms / 1e3 / wall:.5f}" if busy else "not measured (no device event traced)"
+    print(f"  [{smi}] calc_pg_upmaps under torch.profiler: {wall:.4f} s, device busy "
+          f"{busy_ms:.4f} ms ({len(busy)} kinds of device event), idle share {idle}; "
+          "largest: " + "; ".join(f"{name[:60]} x{n} {ms:.4f} ms" for name, (n, ms) in top),
+          flush=True)
+    t = bal["timing"]
+    print(f"  [{smi}] psim scenario: {t['pgs_mapped']} PGs mapped in {t['map_seconds']:.4f} s "
+          f"= {t['pgs_mapped_per_s']:.1f} PGs/s; balance {t['balance_seconds']:.4f} s "
+          f"(scoring {t['score_seconds']:.4f} s); total {t['total_seconds']:.4f} s", flush=True)
+
+    calls = []
+    real_cls = OSDMap.pool_mappings
+
+    def timed_cls(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = real_cls(self, *args, **kw)
+        calls.append(time.perf_counter() - t0)
+        return out
+
+    live = build_cluster(BAL_OSDS, rep_pg_num=BAL_REP_PGS, ec_pg_num=BAL_EC_PGS, device="cuda")
+    module = BalancerModule(FakeMon(live, compile_crushmap), device="cuda")
+    OSDMap.pool_mappings = timed_cls
+    try:
+        t0 = time.perf_counter()
+        res = asyncio.run(module.crush_compat())
+        total = time.perf_counter() - t0
+    finally:
+        OSDMap.pool_mappings = real_cls
+    pools = len(live.pools)
+    per_iter = [sum(calls[i:i + pools]) for i in range(0, len(calls), pools)]
+    print(f"  [{smi}] crush-compat pass: {total:.4f} s, {len(per_iter)} evaluations "
+          f"(start + {len(per_iter) - 1} iterations), pool mapping with run-time "
+          f"weights per evaluation (both pools): "
+          f"{', '.join(f'{s:.4f}' for s in per_iter)} s; spread "
+          f"{res.get('spread_before', 0.0):.4f} -> {res.get('spread_after', 0.0):.4f}",
+          flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; a CUDA card is "
               "required", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ceph_tpu_torch.crush import balance
     from ceph_tpu_torch.crush import builder as cb
     from ceph_tpu_torch.crush import torch_mapper as tm
     from ceph_tpu_torch.crush import types as crush_types
     from ceph_tpu_torch.crush.compiler import compile_crushmap, decompile_crushmap
     from ceph_tpu_torch.crush.tester import CrushTester
     from ceph_tpu_torch.ec.registry import factory
+    from ceph_tpu_torch.mgr import BalancerModule
     from ceph_tpu_torch.ops import crush_cuda as cc
     from ceph_tpu_torch.ops import cuda_build, gf
     from ceph_tpu_torch.ops import gf_cuda as gc
+    from ceph_tpu_torch.ops import upmap_cuda as uc
     from ceph_tpu_torch.osd import encode_service as es
-    from ceph_tpu_torch.tools import crush_bench, crushtool, ec_bench
+    from ceph_tpu_torch.osd.osdmap import OSDMap
+    from ceph_tpu_torch.sim import build_cluster
+    from ceph_tpu_torch.tools import crush_bench, crushtool, ec_bench, psim
 
     print("phase 1: device", flush=True)
     kind = torch.cuda.get_device_name(0)
@@ -671,6 +1270,27 @@ def main() -> int:
     print("phase 9: crush times", flush=True)
     crush_times = phase_crush_times(cc, tm, big, crush_main, plain_ms, smi)
 
+    print("phase 10: upmap scoring kernel vs plain on the card", flush=True)
+    upmap_err, round1, spread1 = phase_upmap_kernels(uc, balance, tm, build_cluster,
+                                                     crush_bench)
+
+    print("phase 11: balancer main path", flush=True)
+    cc.crush_choose.launches = 0
+    uc.upmap_score.launches = 0
+    bal = phase_balancer_main(psim, BalancerModule, build_cluster, compile_crushmap)
+    torch.cuda.synchronize()
+    bal_crush_launches = cc.crush_choose.launches
+    upmap_launches = uc.upmap_score.launches
+    print(f"  launches on the balancer path: upmap_score {upmap_launches}, crush_choose "
+          f"{bal_crush_launches}", flush=True)
+    if upmap_launches < 1 or bal_crush_launches < 1:
+        raise AssertionError("the balancer path never launched upmap_score or crush_choose")
+    check_balancer_outputs(tm, balance, OSDMap, bal, spread1)
+
+    print("phase 12: balancer times", flush=True)
+    upmap_times = phase_balancer_times(uc, balance, build_cluster, BalancerModule, OSDMap,
+                                       compile_crushmap, round1, bal, smi)
+
     kernels = [{
         "name": "gf_matmul_packed",
         "route": "cuda",
@@ -688,14 +1308,29 @@ def main() -> int:
         "route": "cuda",
         "source": "ceph_tpu_torch/csrc/crush_choose.cu",
         "replaces": "ceph_tpu/crush/jax_mapper.py:952",
-        "launches": crush_launches,
+        "launches": crush_launches + bal_crush_launches,
         "max_abs_err": crush_err,
         "ms": crush_times[0]["ms"],
         "plain_ms": crush_times[0]["plain_ms"],
         "bound_ms": crush_times[0]["bound_ms"],
         "bound_by": "operations",
         "library_ms": None,
+    }, {
+        "name": "upmap_score",
+        "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/upmap_score.cu",
+        "replaces": "ceph_tpu/crush/balance.py:130",
+        "launches": upmap_launches,
+        "max_abs_err": upmap_err,
+        "ms": upmap_times["ms"],
+        "plain_ms": upmap_times["plain_ms"],
+        "bound_ms": upmap_times["bound_ms"],
+        "bound_by": "operations",
+        "library_ms": None,
     }]
+    left = own_children()
+    if left:
+        raise AssertionError(f"processes still running: {left}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
