@@ -1,14 +1,26 @@
-// gf_matmul.cu — GF(2^8) matrix x chunk-planar packed words, for Hopper (sm_90a).
+// gf_matmul.cu — GF(2^8) matrix x chunk data, for Hopper (sm_90a). Two
+// entry points over the same split-nibble arithmetic:
 //
-// Replaces the TPU kernel ceph_tpu/ops/gf_pallas.py:gf_matmul_packed (Pallas
-// body `_kernel`). Same contract: (k, N4) int32 words, four data bytes to a
-// word, chunk j in row j, times the coding matrix -> (r, N4) int32 words of
-// parity or rebuilt chunks. Any {0,1} bit-matrix is taken, not only GF-derived
-// ones.
+//  * gf_matmul_packed_launch replaces the TPU kernel
+//    ceph_tpu/ops/gf_pallas.py:gf_matmul_packed (Pallas body `_kernel`). Same
+//    contract: (k, N4) int32 words, four data bytes to a word, chunk j in row
+//    j, times the coding matrix -> (r, N4) int32 words of parity or rebuilt
+//    chunks.
+//  * gf_matmul_bytes_launch replaces the XLA function
+//    ceph_tpu/ops/gf_bitplane.py:gf_matmul_bitplane, the byte-layout batched
+//    form every non-planar codec calls (shec, lrc's RS layers, clay's MDS,
+//    the RS byte API): (B, k, L) uint8 -> (B, r, L) uint8, with the batch and
+//    row strides of the input given (the last axis is contiguous), and any L.
+//    The TPU function expands bytes to bit-planes for the MXU; this kernel
+//    computes the same function from the tables instead.
 //
-// What bounds it on an H100: memory. Every input word is read once and every
-// output word written once: (k + r) * N4 * 4 bytes at 3.35 TB/s. There is no
-// multiply to count; a GF(2^8) product is two table lookups and an XOR.
+// Any {0,1} bit-matrix is taken, not only GF-derived ones (shec's decode
+// matrices are not images of GF(2^8) matrices in general).
+//
+// What bounds it on an H100: memory. Every input byte is read once and every
+// output byte written once: (k + r) * N4 * 4 bytes at 3.35 TB/s for the
+// packed form, B * (k + r) * L bytes for the byte form. There is no multiply
+// to count; a GF(2^8) product is two table lookups and an XOR.
 //
 // What the design does about it:
 //  * Block (i, j) of the (8r, 8k) bit-matrix is a GF(2)-linear map on a byte,
@@ -34,6 +46,12 @@
 //    4 at 64 registers, times the SMs, times two). On an H100 at (8, 8 Mi)
 //    words that ran 4% faster than one wave: blocks of the second wave
 //    fill the SMs as the first ones finish.
+//  * The byte form runs the same inner loop on 16 bytes (four words) of one
+//    batch item per thread; a flat index over (batch, 16-byte group) walks
+//    the grid, so one launch covers the whole batch. 16-byte loads and
+//    stores where L, the strides and the bases are 16-byte aligned; byte
+//    loads and stores, masked at L, everywhere else (clay's sub-chunk
+//    columns, strided survivor slices of any width).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -142,6 +160,113 @@ gf_matmul_packed_kernel(const uint8_t* __restrict__ tables,  // (r, k, 32)
   }
 }
 
+
+// 16 bytes at src as four little-endian words: one 16-byte load when `vec`,
+// else byte loads of the first nb (< 16 at the ragged end) and zeros after.
+__device__ __forceinline__ uint4 load_bytes16(const uint8_t* src, int vec,
+                                              int nb) {
+  if (vec) return *reinterpret_cast<const uint4*>(src);
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int b = 0; b < 16; ++b)
+    if (b < nb) w[b >> 2] |= (uint32_t)src[b] << (8 * (b & 3));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ void store_bytes16(uint8_t* dst, uint4 v, int vec,
+                                              int nb) {
+  if (vec) {
+    *reinterpret_cast<uint4*>(dst) = v;
+    return;
+  }
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int b = 0; b < 16; ++b)
+    if (b < nb) dst[b] = (uint8_t)(w[b >> 2] >> (8 * (b & 3)));
+}
+
+__global__ void __launch_bounds__(kThreads)
+gf_matmul_bytes_kernel(const uint8_t* __restrict__ tables,  // (r, k, 32)
+                       const uint8_t* __restrict__ in,      // (B, k, L) strided
+                       uint8_t* __restrict__ out,           // (B, r, L)
+                       int k, int r, long batch, long len, long in_sb,
+                       long in_sk, int vec) {
+  extern __shared__ uint4 s_tab[];
+  uint8_t* s_bytes = reinterpret_cast<uint8_t*>(s_tab);
+  const int ntab = r * k * 32;
+  for (int t = threadIdx.x; t < ntab; t += blockDim.x) s_bytes[t] = tables[t];
+  __syncthreads();
+
+  const long groups = (len + 15) / 16;
+  const long total = batch * groups;
+  const long step = (long)gridDim.x * blockDim.x;
+  for (long g = (long)blockIdx.x * blockDim.x + threadIdx.x; g < total;
+       g += step) {
+    const long b = g / groups;
+    const long c0 = (g - b * groups) * 16;
+    const int nb = (int)(len - c0 < 16 ? len - c0 : 16);
+    const uint8_t* src = in + b * in_sb + c0;
+    for (int i0 = 0; i0 < r; i0 += kRowGroup) {
+      uint32_t acc[kRowGroup][kCols];
+#pragma unroll
+      for (int a = 0; a < kRowGroup; ++a)
+#pragma unroll
+        for (int q = 0; q < kCols; ++q) acc[a][q] = 0u;
+
+      uint4 next = load_bytes16(src, vec, nb);
+      for (int j = 0; j < k; ++j) {
+        const uint4 cur = next;
+        if (j + 1 < k) next = load_bytes16(src + (long)(j + 1) * in_sk, vec, nb);
+        const uint32_t w[kCols] = {cur.x, cur.y, cur.z, cur.w};
+        Nibbles lo[kCols], hi[kCols];
+#pragma unroll
+        for (int q = 0; q < kCols; ++q) {
+          lo[q] = nibbles(w[q] & 0x0f0f0f0fu, (w[q] >> 3) & 0x01010101u);
+          hi[q] = nibbles((w[q] >> 4) & 0x0f0f0f0fu, (w[q] >> 7) & 0x01010101u);
+        }
+#pragma unroll
+        for (int a = 0; a < kRowGroup; ++a) {
+          const int i = i0 + a;
+          if (i < r) {
+            const uint4 t_lo = s_tab[2 * (i * k + j)];
+            const uint4 t_hi = s_tab[2 * (i * k + j) + 1];
+#pragma unroll
+            for (int q = 0; q < kCols; ++q)
+              acc[a][q] ^= lookup16(t_lo, lo[q]) ^ lookup16(t_hi, hi[q]);
+          }
+        }
+      }
+
+#pragma unroll
+      for (int a = 0; a < kRowGroup; ++a) {
+        const int i = i0 + a;
+        if (i < r)
+          store_bytes16(out + (b * r + i) * len + c0,
+                        make_uint4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]),
+                        vec, nb);
+      }
+    }
+  }
+}
+
+// Grid of `work` items of kThreads threads, capped at kWaves waves of the
+// blocks the occupancy calculator lets reside; 0 or a CUDA error.
+template <typename Kernel>
+int grid_for(Kernel kernel, size_t smem, long work, long* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  long n = (work + kThreads - 1) / kThreads;
+  const long cap = (long)sms * (per_sm > 0 ? per_sm : 1) * kWaves;
+  *blocks = n > cap ? cap : n;
+  return 0;
+}
+
 }  // namespace
 
 // Launch on `stream` (a cudaStream_t); returns cudaGetLastError() after the
@@ -154,24 +279,41 @@ extern "C" int gf_matmul_packed_launch(const void* tables, const void* in,
   const size_t smem = (size_t)r * k * 32;
   if (smem > kMaxTableBytes) return (int)cudaErrorInvalidValue;
   if (n4 == 0) return 0;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, gf_matmul_packed_kernel, kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  const long groups = (n4 + kCols - 1) / kCols;
-  long blocks = (groups + kThreads - 1) / kThreads;
-  const long cap = (long)sms * (per_sm > 0 ? per_sm : 1) * kWaves;
-  if (blocks > cap) blocks = cap;
+  long blocks = 0;
+  const int err = grid_for(gf_matmul_packed_kernel, smem,
+                           (n4 + kCols - 1) / kCols, &blocks);
+  if (err != 0) return err;
   const int vec = n4 % kCols == 0 && (uintptr_t)in % 16 == 0 &&
                   (uintptr_t)out % 16 == 0;
   gf_matmul_packed_kernel<<<(unsigned)blocks, kThreads, smem,
                             (cudaStream_t)stream>>>(
       (const uint8_t*)tables, (const uint32_t*)in, (uint32_t*)out, k, r, n4,
       vec);
+  return (int)cudaGetLastError();
+}
+
+// Launch on `stream`; returns cudaGetLastError() after the launch, 0 on
+// success. tables is (r, k, 32) uint8; in is (batch, k, len) uint8 whose item
+// b, row j starts at in + b * in_sb + j * in_sk (bytes; the last axis is
+// contiguous); out is (batch, r, len) uint8, contiguous.
+extern "C" int gf_matmul_bytes_launch(const void* tables, const void* in,
+                                      void* out, int k, int r, long batch,
+                                      long len, long in_sb, long in_sk,
+                                      void* stream) {
+  if (k <= 0 || r <= 0 || batch < 0 || len < 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)r * k * 32;
+  if (smem > kMaxTableBytes) return (int)cudaErrorInvalidValue;
+  if (batch == 0 || len == 0) return 0;
+  long blocks = 0;
+  const int err = grid_for(gf_matmul_bytes_kernel, smem,
+                           batch * ((len + 15) / 16), &blocks);
+  if (err != 0) return err;
+  const int vec = len % 16 == 0 && in_sb % 16 == 0 && in_sk % 16 == 0 &&
+                  (uintptr_t)in % 16 == 0 && (uintptr_t)out % 16 == 0;
+  gf_matmul_bytes_kernel<<<(unsigned)blocks, kThreads, smem,
+                           (cudaStream_t)stream>>>(
+      (const uint8_t*)tables, (const uint8_t*)in, (uint8_t*)out, k, r, batch,
+      len, in_sb, in_sk, vec);
   return (int)cudaGetLastError();
 }
 

@@ -48,6 +48,29 @@ def to_host(x) -> np.ndarray:
     return np.asarray(x)
 
 
+_NUMPY_DTYPE = {torch.uint8: np.uint8, torch.int32: np.int32}
+
+
+def to_device(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A numpy array or tensor as a `dtype` tensor on `device` (read-only or
+    strided numpy buffers are copied before torch sees them). Host input is
+    copied to `device`; a tensor on another kind of device raises, so a CPU
+    codec never pulls card data back to compute it on the host."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype != dtype:
+            raise TypeError(f"expected a {dtype} tensor, got {x.dtype}")
+        if x.device.type not in ("cpu", device.type):
+            raise ValueError(
+                f"tensor on {x.device} given to a codec on {device}: "
+                "move it, or build the codec on that device"
+            )
+        return x.to(device)
+    arr = np.asarray(x, dtype=_NUMPY_DTYPE[dtype])
+    if not arr.flags.writeable or not arr.flags.c_contiguous:
+        arr = np.array(arr, order="C")
+    return torch.from_numpy(arr).to(device)
+
+
 class ErasureCodeError(Exception):
     """Error with an errno, mirroring the reference's int return codes."""
 

@@ -3,13 +3,15 @@
 Port of ceph_tpu/ec/registry.py, which mirrors the reference's
 `ErasureCodePluginRegistry` (ErasureCodePlugin.{h,cc}): plugins register a
 factory under a name; `factory(plugin, profile, device)` instantiates and
-initializes a codec on `device` (default cuda).
+initializes a codec on `device` (default cuda). Composite codecs (lrc's
+layers, clay's scalar MDS codes) build their inner codecs on the same
+device.
 
-Ported so far: `tpu`, `isa`, and `jerasure`'s matrix techniques (reed_sol_van,
-reed_sol_r6_op, cauchy_orig, cauchy_good), all on ErasureCodeRs. The other
-plugin names of the reference package (`shec`, `lrc`, `clay`, `native`) and
-jerasure's bitmatrix techniques are registered so that a profile naming them
-gets a clear error rather than an unknown-plugin one.
+Ported: `tpu`, `isa`, `jerasure` (the matrix techniques on ErasureCodeRs,
+liberation / blaum_roth / liber8tion on ErasureCodeBitmatrix), `shec`, `lrc`
+and `clay`. `native`, the C++ plugin of the reference package
+(ceph_tpu/ec/native.py over ceph_tpu/native/), is registered so that a
+profile naming it gets a clear error rather than an unknown-plugin one.
 """
 
 from __future__ import annotations
@@ -17,12 +19,12 @@ from __future__ import annotations
 import errno
 from typing import Callable
 
+from ceph_tpu_torch.ec.bitmatrix import BUILDERS, ErasureCodeBitmatrix
+from ceph_tpu_torch.ec.clay import ErasureCodeClay
 from ceph_tpu_torch.ec.interface import ErasureCode, ErasureCodeError, ErasureCodeProfile
+from ceph_tpu_torch.ec.lrc import ErasureCodeLrc
 from ceph_tpu_torch.ec.rs import ErasureCodeRs
-
-#: jerasure techniques served by the bitmatrix codec (ec/bitmatrix.py in the
-#: reference package), which is not ported yet
-BITMATRIX_TECHNIQUES = ("liberation", "blaum_roth", "liber8tion")
+from ceph_tpu_torch.ec.shec import ErasureCodeShec
 
 
 class ErasureCodePluginRegistry:
@@ -69,7 +71,8 @@ registry = ErasureCodePluginRegistry()
 
 class _JerasureSelector:
     """Technique-dispatching factory for plugin=jerasure: the matrix
-    techniques live in ErasureCodeRs (the reference's plugin factory
+    techniques live in ErasureCodeRs, the liberation-family pure-bitmatrix
+    techniques in ErasureCodeBitmatrix (the reference's plugin factory
     similarly switches on technique, ErasureCodePluginJerasure.cc)."""
 
     def __init__(self, device=None):
@@ -77,12 +80,8 @@ class _JerasureSelector:
 
     def init(self, profile):
         technique = profile.get("technique", "reed_sol_van")
-        if technique in BITMATRIX_TECHNIQUES:
-            raise ErasureCodeError(
-                errno.ENOTSUP,
-                f"jerasure technique={technique} is not ported to "
-                "ceph_tpu_torch yet",
-            )
+        if technique in BUILDERS:
+            return ErasureCodeBitmatrix(technique, device=self.device).init(profile)
         return ErasureCodeRs("jerasure", device=self.device).init(profile)
 
 
@@ -103,8 +102,10 @@ def _register_builtin() -> None:
     registry.add("tpu", lambda device=None: ErasureCodeRs("tpu", device=device))
     registry.add("jerasure", _JerasureSelector)
     registry.add("isa", lambda device=None: ErasureCodeRs("isa", device=device))
-    for name in ("shec", "lrc", "clay", "native"):
-        registry.add(name, _NotPorted(name))
+    registry.add("shec", ErasureCodeShec)
+    registry.add("lrc", ErasureCodeLrc)
+    registry.add("clay", ErasureCodeClay)
+    registry.add("native", _NotPorted("native"))
 
 
 _register_builtin()

@@ -3,9 +3,11 @@
 Port of ceph_tpu/ec/rs.py. One codec class covers the matrix techniques of the
 reference's `jerasure` and `isa` plugins (ErasureCodeJerasure.cc,
 ErasureCodeIsa.cc): the technique picks the coding-matrix family
-(ceph_tpu_torch.ec.matrices); the byte API runs the bit-plane matmul
-(ceph_tpu_torch.ops.gf_bitplane); the planar word API runs the CUDA kernel
-(ceph_tpu_torch.ops.gf_cuda); and decode matrices are memoized per erasure
+(ceph_tpu_torch.ec.matrices); the byte API runs the batched matmul or, for
+an m=1 XOR code, the XOR reduction of ceph_tpu_torch.ops.gf_bitplane; the
+planar word API runs the packed-word kernel or the planar XOR of
+ceph_tpu_torch.ops.gf_cuda (each a CUDA kernel for a card codec, its plain
+version for a CPU codec); and decode matrices are memoized per erasure
 signature — the analogue of the reference's LRU decoding-table cache
 (ErasureCodeIsaTableCache.cc:234-296).
 
@@ -42,6 +44,7 @@ from ceph_tpu_torch.ec.interface import (
     profile_to_bool,
     profile_to_int,
     profile_to_string,
+    to_device,
 )
 from ceph_tpu_torch.ops import gf_bitplane as bp
 from ceph_tpu_torch.ops import gf_cuda as gc
@@ -74,29 +77,6 @@ class CodingTables:
             packed_t=torch.from_numpy(packed).to(device),
             tables_t=torch.from_numpy(gc.nibble_tables(bits)).to(device),
         )
-
-
-_NUMPY_DTYPE = {torch.uint8: np.uint8, torch.int32: np.int32}
-
-
-def _to_device(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """A numpy array or tensor as a `dtype` tensor on `device` (read-only or
-    strided numpy buffers are copied before torch sees them). Host input is
-    copied to `device`; a tensor on another kind of device raises, so a CPU
-    codec never pulls card data back to compute it on the host."""
-    if isinstance(x, torch.Tensor):
-        if x.dtype != dtype:
-            raise TypeError(f"expected a {dtype} tensor, got {x.dtype}")
-        if x.device.type not in ("cpu", device.type):
-            raise ValueError(
-                f"tensor on {x.device} given to a codec on {device}: "
-                "move it, or build the codec on that device"
-            )
-        return x.to(device)
-    arr = np.asarray(x, dtype=_NUMPY_DTYPE[dtype])
-    if not arr.flags.writeable or not arr.flags.c_contiguous:
-        arr = np.array(arr, order="C")
-    return torch.from_numpy(arr).to(device)
 
 
 class ErasureCodeRs(ErasureCode):
@@ -243,10 +223,11 @@ class ErasureCodeRs(ErasureCode):
 
     def encode_array(self, data) -> torch.Tensor:
         """(B, k, L) uint8 -> (B, m, L) parity, a tensor on the codec's device."""
-        data = _to_device(data, torch.uint8, self.device)
+        data = to_device(data, torch.uint8, self.device)
         if self._xor_ok:
             return bp.xor_reduce(data)
-        return bp.gf_matmul_bitplane(self._encode.bits_t, data)
+        enc = self._encode
+        return bp.gf_matmul_bitplane(enc.bits_t, data, tables=enc.tables_t)
 
     def decode_bitmatrix(self, present: Sequence[int], targets: Sequence[int]) -> CodingTables:
         """Memoized decode matrices for an erasure signature, in host and
@@ -264,9 +245,10 @@ class ErasureCodeRs(ErasureCode):
     def decode_array(self, present, targets, survivors) -> torch.Tensor:
         if len(present) < self.k:
             raise ErasureCodeError(errno.EIO, "not enough survivors")
-        survivors = _to_device(survivors, torch.uint8, self.device)[:, : self.k, :]
-        tables = self.decode_bitmatrix(present, targets)
-        return bp.gf_matmul_bitplane(tables.bits_t, survivors)
+        # a strided view: the kernel reads the first k rows in place
+        survivors = to_device(survivors, torch.uint8, self.device)[:, : self.k, :]
+        dec = self.decode_bitmatrix(present, targets)
+        return bp.gf_matmul_bitplane(dec.bits_t, survivors, tables=dec.tables_t)
 
     # -- planar word API: the CUDA kernel's entry point -------------------------
 
@@ -278,7 +260,7 @@ class ErasureCodeRs(ErasureCode):
         (ceph_tpu_torch.ops.gf_cuda). On a CPU codec the same call runs the
         kernel's plain version.
         """
-        words = _to_device(words, torch.int32, self.device)
+        words = to_device(words, torch.int32, self.device)
         if self._xor_ok:
             return gc.xor_reduce_words(words)
         enc = self._encode
@@ -289,7 +271,7 @@ class ErasureCodeRs(ErasureCode):
         `present`, ascending); returns len(targets) rebuilt chunk rows."""
         if len(present) < self.k:
             raise ErasureCodeError(errno.EIO, "not enough survivors")
-        words = _to_device(words, torch.int32, self.device)[: self.k]
+        words = to_device(words, torch.int32, self.device)[: self.k]
         dec = self.decode_bitmatrix(present, targets)
         return gc.gf_matmul_packed(dec.packed_t, words, tables=dec.tables_t)
 

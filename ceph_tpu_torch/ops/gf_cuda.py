@@ -14,6 +14,11 @@ csrc/gf_matmul.cu, which works from split-nibble tables (`nibble_tables`)
 derived once per matrix. For a CPU tensor it runs `gf_matmul_packed_plain`,
 a direct transcription of the Pallas kernel's arithmetic. Nothing else
 selects between them, and nothing falls back.
+
+`xor_reduce_words` (the m=1 planar parity) is built the same way over
+csrc/xor_rowmatmul.cu, the row-list XOR kernel: `launch_row_lists` binds it
+for `ec.bitmatrix.xor_rowmatmul`, and `launch_xor_rows` hands it the one-row
+list "XOR every row" for `xor_reduce_words` and `gf_bitplane.xor_reduce`.
 """
 
 from __future__ import annotations
@@ -35,10 +40,18 @@ __all__ = [
     "gf_matmul_packed",
     "gf_matmul_packed_plain",
     "xor_reduce_words",
+    "xor_reduce_words_plain",
+    "launch_row_lists",
+    "launch_xor_rows",
 ]
 
 #: the kernel stages r*k*32 table bytes in (non-opt-in) shared memory
 MAX_TABLE_BYTES = 48 * 1024
+
+#: the row-list kernel stages R + 1 row offsets and the selected rows, int32,
+#: in shared memory: at most the 227 KB a block can have
+#: (csrc/xor_rowmatmul.cu kMaxListWords)
+MAX_LIST_WORDS = 232448 // 4
 
 #: columns per step of the plain version: bounds its float32 bit-plane temporaries
 PLAIN_STEP_WORDS = 1 << 20
@@ -180,7 +193,83 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.gf_cuda_error_string.argtypes = [ctypes.c_int]
         lib.gf_cuda_error_string.restype = ctypes.c_char_p
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+        lib.gf_matmul_bytes_launch.argtypes = [p, p, p, i, i, ll, ll, ll, ll, p]
+        lib.gf_matmul_bytes_launch.restype = ctypes.c_int
     return lib
+
+
+def _xor_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("xor_rowmatmul")
+    fn = lib.xor_rowmatmul_launch
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+        fn.argtypes = [p, i, i, p, p, ll, ll, ll, ll, p]
+        fn.restype = ctypes.c_int
+        lib.xor_rowmatmul_error_string.argtypes = [ctypes.c_int]
+        lib.xor_rowmatmul_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def row_strides(data: torch.Tensor, what: str) -> tuple[int, int]:
+    """(batch, row) strides in bytes of a (B, n, L) uint8 CUDA tensor whose
+    last axis is contiguous: the kernels read strided slices such as
+    `survivors[:, :k, :]` in place, without a copy. Raises otherwise."""
+    if data.shape[-1] > 1 and data.stride(-1) != 1:
+        raise ValueError(f"{what}: the last axis must be contiguous, got strides "
+                         f"{data.stride()}")
+    return data.stride(0), data.stride(1)
+
+
+def launch_row_lists(lists: torch.Tensor, rows_out: int, data: torch.Tensor,
+                     what: str) -> torch.Tensor:
+    """(B, C, L) uint8 CUDA tensor (last axis contiguous, any batch and row
+    strides) -> (B, rows_out, L) uint8 by csrc/xor_rowmatmul.cu on the
+    current stream: output row i is the XOR of the input rows that `lists`
+    (int32 on the same device: rows_out + 1 offsets, then the selected
+    rows) gives it. Counts nothing: each wrapper counts its own."""
+    if (lists.dtype != torch.int32 or lists.dim() != 1 or lists.numel() < rows_out + 1
+            or lists.numel() > MAX_LIST_WORDS or lists.device != data.device
+            or not lists.is_contiguous()):
+        raise ValueError(
+            f"{what}: lists must be contiguous int32 on {data.device} with "
+            f"{rows_out + 1} to {MAX_LIST_WORDS} words, got {tuple(lists.shape)} "
+            f"{lists.dtype} on {lists.device}"
+        )
+    in_sb, in_sc = row_strides(data, what)
+    batch, _, length = data.shape
+    out = torch.empty((batch, rows_out, length), dtype=torch.uint8, device=data.device)
+    if batch == 0 or length == 0:
+        return out
+    lib = _xor_lib()
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        err = lib.xor_rowmatmul_launch(
+            lists.data_ptr(), rows_out, lists.numel(), data.data_ptr(), out.data_ptr(),
+            batch, length, in_sb, in_sc, stream)
+    if err != 0:
+        msg = lib.xor_rowmatmul_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+    return out
+
+
+_xor_lists: dict[tuple[int, torch.device], torch.Tensor] = {}
+
+
+def xor_list(k: int, device: torch.device) -> torch.Tensor:
+    """The one-row list "XOR rows 0..k-1", [0, k, 0, 1, ..., k-1] int32 on
+    `device`, made once per (k, device)."""
+    key = (k, device)
+    if key not in _xor_lists:
+        _xor_lists[key] = torch.tensor([0, k, *range(k)], dtype=torch.int32, device=device)
+    return _xor_lists[key]
+
+
+def launch_xor_rows(data: torch.Tensor, what: str) -> torch.Tensor:
+    """(B, k, L) uint8 CUDA tensor (last axis contiguous, any batch and row
+    strides) -> (B, 1, L) uint8, the XOR of the k rows, by the row-list
+    kernel with the one-row list of `xor_list`. Counts nothing."""
+    return launch_row_lists(xor_list(data.shape[1], data.device), 1, data, what)
 
 
 def _tables_for(packed_mat: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -251,14 +340,39 @@ def gf_matmul_packed(
 gf_matmul_packed.launches = 0
 
 
+def xor_reduce_words_plain(words: torch.Tensor) -> torch.Tensor:
+    """(k, N4) int32 -> (1, N4): the XOR of the rows, in torch ops."""
+    out = words[0].clone()
+    for j in range(1, words.shape[0]):
+        out ^= words[j]
+    return out[None, :]
+
+
 def xor_reduce_words(words: torch.Tensor) -> torch.Tensor:
     """m=1 fast path on packed words: (k, N4) int32 -> (1, N4) XOR.
 
     Mirrors the reference ISA plugin's m==1 region-XOR short-circuit
     (ErasureCodeIsa.cc:121-128, xor_op.cc) — XOR commutes with the packing.
-    Torch ops on the tensor's device; a kernel of its own is still to come.
+    A CPU tensor runs the plain version. A CUDA tensor (contiguous) launches
+    csrc/xor_rowmatmul.cu (`launch_xor_rows`) on its bytes, a (1, k, 4 N4)
+    uint8 view of the same memory, and adds one to
+    `xor_reduce_words.launches`.
     """
-    out = words[0].clone()
-    for j in range(1, words.shape[0]):
-        out ^= words[j]
-    return out[None, :]
+    if not isinstance(words, torch.Tensor):
+        raise TypeError("xor_reduce_words takes a torch tensor")
+    if words.dim() != 2 or words.dtype != torch.int32 or words.shape[0] < 1:
+        raise TypeError(f"words must be (k, N4) int32 with k >= 1, got "
+                        f"{tuple(words.shape)} {words.dtype}")
+    if words.device.type == "cpu":
+        return xor_reduce_words_plain(words)
+    if words.device.type != "cuda":
+        raise ValueError(f"xor_reduce_words: unsupported device {words.device}")
+    if not words.is_contiguous():
+        raise ValueError("xor_reduce_words: words must be contiguous")
+    out = launch_xor_rows(words.view(torch.uint8)[None], "xor_reduce_words")
+    xor_reduce_words.launches += 1
+    return out[0].view(torch.int32)
+
+
+#: kernel launches made by the wrapper (the plain version counts none)
+xor_reduce_words.launches = 0

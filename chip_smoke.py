@@ -14,7 +14,11 @@ placement balancing at the JAX package's own balancer scale (bench.py's
 _balance_line: 1024 OSDs, a replicated pool of 262,144 PGs x 3 and an EC
 pool of 32,768 PGs x 6): the port's psim scenario (`OSDMap.pool_mappings`
 over the choose kernel, `calc_pg_upmaps` over the hand-written move-scoring
-kernel) and the mgr `BalancerModule` in upmap and crush-compat modes. Phases:
+kernel) and the mgr `BalancerModule` in upmap and crush-compat modes. Then
+the other EC families (shec, lrc, clay, jerasure's liberation) through
+`ec_bench --batch`, their array APIs, clay's MSR repair, the corpus and
+`EncodeService`, over the hand-written byte-layout GF(2^8) matmul, XOR and
+row-product kernels. Phases:
 
   1. the card: name, count, and nvidia-smi's name and power limit;
   2. build every kernel under ceph_tpu_torch/csrc with nvcc (ptxas report);
@@ -71,9 +75,32 @@ kernel) and the mgr `BalancerModule` in upmap and crush-compat modes. Phases:
       mapping, scoring and host greedy/revalidation, the same pass under
       torch.profiler (device busy time, idle share), the scenario's PGs
       mapped per second, and each crush-compat iteration;
-  13. no process this script started is left (nvcc, nvidia-smi and the
+  13. the four kernels of the EC families against their plain versions on
+      the card, bit-exact: the byte-layout GF(2^8) matmul at shec's encode
+      and lrc's global layer (64 x 1 MiB chunks), a shec decode matrix on
+      strided survivors, a ragged width, k = 1 and a bit-matrix that is not
+      GF(2^8)'s; the XOR kernel at lrc's local layer, strided, ragged and
+      k = 1, and on planar words at (8, 8 Mi), (2, 32 Mi) and a ragged
+      width; the row product at liberation's encode and decode, ragged and
+      strided, and at C = 289;
+  14. the EC families' main path, the four new counts zeroed just before
+      and read just after: for shec k=4 m=3 c=2, lrc k=4 m=2 l=3, clay
+      k=4 m=2 d=5 and liberation k=4 m=2 w=7 packetsize=2048, ec_bench
+      --batch 64 (clay: 8) -s 4 MiB encode and decode of each erasure set,
+      then the batch encode and decode on the card against the same codec
+      on the CPU, and clay's MSR repair of a whole batch through
+      repair_array; the eight corpus profiles of these families on the
+      card (golden chunks, every single and pair erasure as on the CPU);
+      EncodeService bursts of 64 x 4 MiB on the lrc codec (per-object
+      fallback) and on an m=1 planar codec (jerasure k=2 m=1, one XOR
+      launch);
+  15. times: each new kernel (CUDA events) beside its bytes bound and its
+      plain version, and each family's batch encode and decode (GB/s, the
+      H2D and D2H copies, one profiled run each: device busy time, the new
+      kernels' share of it, idle share);
+  16. no process this script started is left (nvcc, nvidia-smi and the
       worker processes are all waited for), then a `kernels` JSON line;
-  14. the `ok` JSON line, last.
+  17. the `ok` JSON line, last.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
 It needs a CUDA card and the repository around it; with neither it fails.
@@ -1038,11 +1065,17 @@ def check_balancer_outputs(tm, balance, OSDMap, bal, spread1) -> None:
 
 def profiled(fn) -> tuple[float, dict]:
     """Runs fn under torch.profiler; returns its host-clock seconds and
-    {name: (count, ms)} of the kernels and copies the card ran meanwhile."""
+    {name: (count, ms)} of the kernels and copies the card ran meanwhile
+    (the opening op's few microseconds included)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the first launches after the window opens came back without device
+        # events (2 of 12 short calls): open it with a small op and a pause
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1188,6 +1221,409 @@ def phase_balancer_times(uc, balance, build_cluster, BalancerModule, OSDMap,
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
 
 
+# -- the other EC families -------------------------------------------------------
+
+#: (name, plugin, profile, erasure sets as physical ids, objects per batch).
+#: clay's plane schedule and pairwise coupling are host numpy (as in the JAX
+#: package), about 0.5 s per 4 MiB object and pass on the H100 machine's
+#: host: its batch is cut to 8 objects, every width kept (PERF.md section 4)
+CLAY_OBJECTS = 8
+FAMILIES = [
+    ("shec", "shec", {"k": "4", "m": "3", "c": "2"}, [(0, 5)], OBJECTS),
+    ("lrc", "lrc", {"k": "4", "m": "2", "l": "3"}, [(0,), (0, 1)], OBJECTS),
+    ("clay", "clay", {"k": "4", "m": "2", "d": "5"}, [(0, 5)], CLAY_OBJECTS),
+    ("liberation", "jerasure", {"k": "4", "m": "2", "w": "7", "technique": "liberation",
+                                "packetsize": "2048"}, [(1, 4)], OBJECTS),
+]
+#: clay's MSR single-node repair: the lost chunk
+CLAY_REPAIR = 1
+#: objects of each batch also run through the same codec on the CPU
+CPU_CHECK_OBJECTS = 4
+#: an m=1 planar codec (the reference's example XOR plugin's geometry)
+XOR_PLUGIN, XOR_PROFILE = "jerasure", {"k": "2", "m": "1", "technique": "reed_sol_van"}
+#: the corpus profiles of the other families (tests/corpus)
+CORPUS_OTHER = [
+    ("jerasure", {"k": "4", "m": "2", "w": "5", "technique": "liberation",
+                  "packetsize": "32"}, 4096),
+    ("jerasure", {"k": "4", "m": "2", "w": "6", "technique": "blaum_roth",
+                  "packetsize": "32"}, 4096),
+    ("jerasure", {"k": "6", "m": "2", "technique": "liber8tion", "packetsize": "32"}, 4096),
+    ("shec", {"k": "4", "m": "3", "c": "2"}, 4096),
+    ("shec", {"k": "6", "m": "4", "c": "3"}, 4096),
+    ("lrc", {"k": "4", "m": "2", "l": "3"}, 4096),
+    ("clay", {"k": "4", "m": "2", "d": "5"}, 4096),
+    ("clay", {"k": "8", "m": "4", "d": "11"}, 98304),
+]
+#: names of the new kernels in a torch.profiler trace
+FAMILY_KERNELS = ("gf_matmul_bytes_kernel", "xor_rowmatmul_kernel")
+
+
+def byte_err(got: torch.Tensor, want: torch.Tensor) -> int:
+    return int((got.to(torch.int16) - want.to(torch.int16)).abs().max()) if got.numel() else 0
+
+
+def check_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> int:
+    """Kernel output against its plain version, bit for bit; returns the
+    max absolute byte difference (0, or the phase fails)."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    err = byte_err(got.view(torch.uint8), want.view(torch.uint8))
+    print(f"  {name}: {tuple(got.shape)}, max_abs_err {err}, equal {torch.equal(got, want)}",
+          flush=True)
+    if not torch.equal(got, want):
+        raise AssertionError(f"kernel != plain for {name}")
+    return err
+
+
+def random_bytes(shape, gen: torch.Generator) -> torch.Tensor:
+    return torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda", generator=gen)
+
+
+def family_codecs(factory) -> dict:
+    """Each family's codec on the card, by name."""
+    return {name: factory(plugin, dict(prof)) for name, plugin, prof, _e, _o in FAMILIES}
+
+
+def phase_family_kernels(bp, gc, bmx, codecs) -> dict:
+    """Phase 13: the four new kernels against their plain versions on the
+    card, at the main path's shapes and on crafted ones."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    errs = {"gf_matmul_bitplane": [], "xor_reduce": [], "xor_reduce_words": [],
+            "xor_rowmatmul": []}
+    chunk = OBJECT_BYTES // 4
+    shec, lrc, lib = codecs["shec"], codecs["lrc"], codecs["liberation"]
+
+    def b3(name, tables, data):
+        got = bp.gf_matmul_bitplane(tables.bits_t, data, tables=tables.tables_t)
+        errs["gf_matmul_bitplane"].append(
+            check_equal(name, got, bp.gf_matmul_bitplane_plain(tables.bits_t, data)))
+
+    def b4(name, data):
+        errs["xor_reduce"].append(check_equal(name, bp.xor_reduce(data),
+                                              bp.xor_reduce_plain(data)))
+
+    def b5(name, mat, rows):
+        got = bmx.xor_rowmatmul(mat.bits_t, rows, lists=mat.lists_t)
+        errs["xor_rowmatmul"].append(
+            check_equal(name, got, bmx.xor_rowmatmul_plain(mat.bits_t, rows)))
+
+    # B3: the main path's shapes, then ragged, k = 1, strided, not GF(2^8)
+    data = random_bytes((OBJECTS, 4, chunk), gen)
+    b3("B3 shec k=4 m=3 encode", shec._encode, data)
+    b3("B3 lrc global layer RS(4,2)", lrc.layers[0].erasure_code._encode, data)
+    n = shec.k + shec.m
+    want, avails = [1, 0, 0, 0, 0, 1, 0], [0, 1, 1, 1, 1, 0, 1]
+    entry = shec._make_decoding_matrix(want, avails)
+    surv = random_bytes((OBJECTS, n, chunk), gen)
+    b3("B3 shec decode of {0,5} (inverse rows, strided survivors)", entry[4],
+       surv[:, 1 : 1 + len(entry[0])])
+    ragged = random_bytes((3, 6, 1000003), gen)
+    b3("B3 ragged L = 1000003, strided", shec._encode, ragged[:, 1:5])
+    rs1 = card_tables(gf_matrix=np.random.default_rng(SEED).integers(0, 256, (3, 1), np.uint8))
+    b3("B3 k = 1, L = 77", rs1, random_bytes((5, 1, 77), gen))
+    rng = np.random.default_rng(SEED + 13)
+    foreign = card_tables(bits=(rng.random((40, 48)) < 0.5).astype(np.int8))
+    b3("B3 random {0,1} bit-matrix (not GF(2^8)'s), r=5 k=6", foreign,
+       random_bytes((OBJECTS, 6, chunk // 4 + 5), gen))
+    # B4: lrc's local layer, then ragged, k = 1, strided
+    b4("B4 lrc local layer k=3", random_bytes((OBJECTS, 3, chunk), gen))
+    phys = random_bytes((OBJECTS, 8, chunk), gen)
+    b4("B4 strided rows of the physical tensor", phys[:, 4:7])
+    b4("B4 ragged L = 1000003", random_bytes((3, 3, 1000003), gen))
+    b4("B4 k = 1 (a copy)", random_bytes((4, 1, 12345), gen))
+    # B2: planar words, (k, 8 Mi) and the m=1 burst's (2, 32 Mi)
+    for rows, n4 in ((K, N4), (2, 4 * N4), (3, N4 + 37)):
+        words = random_words(rows, n4, gen)
+        errs["xor_reduce_words"].append(check_equal(
+            f"B2 ({rows}, {n4}) words", gc.xor_reduce_words(words),
+            gc.xor_reduce_words_plain(words)))
+    # B5: liberation encode at the main path's shape, its decode, ragged, strided
+    L = lib.get_chunk_size(OBJECT_BYTES)
+    rows = lib._rows(random_bytes((OBJECTS, 4, L), gen))
+    b5("B5 liberation k=4 w=7 encode", lib._encode, rows)
+    b5("B5 liberation decode of {1,4}", lib._decode_rows([0, 2, 3, 5], [1, 4]), rows)
+    b5("B5 ragged P = 2048 * 3 + 12, strided",
+       lib._encode, random_bytes((3, 30, 2048 * 3 + 12), gen)[:, 1:29])
+    wide = bmx.RowMatrix(bmx.liberation_bitmatrix(17, 17), torch.device("cuda"))
+    b5("B5 liberation k=17 w=17 (C = 289)", wide, random_bytes((2, 289, 4096), gen))
+    return {name: max(v) for name, v in errs.items()}
+
+
+def card_tables(gf_matrix=None, bits=None):
+    """CodingTables on the card for a GF(2^8) matrix or a {0,1} bit-matrix."""
+    from ceph_tpu_torch.ec.rs import CodingTables
+    from ceph_tpu_torch.ops.gf import matrix_to_bitmatrix
+
+    bits = matrix_to_bitmatrix(gf_matrix) if bits is None else bits
+    return CodingTables.from_bitmatrix(bits, torch.device("cuda"))
+
+
+def bench_seconds(ec_bench, argv) -> float:
+    """One ec_bench run (cold: the codec is built and its tables uploaded
+    inside it); echoes its output and returns its `seconds` field."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = ec_bench.main(argv)
+    text = out.getvalue()
+    print("  ec_bench " + " ".join(argv) + ":\n    " + text.strip().replace("\n", "\n    "),
+          flush=True)
+    if rc != 0:
+        raise AssertionError("ec_bench failed")
+    return float(text.strip().splitlines()[-1].split("\t")[0])
+
+
+def family_batch(codec, objects: int, gen: torch.Generator) -> torch.Tensor:
+    return random_bytes((objects, codec.k, codec.get_chunk_size(OBJECT_BYTES)), gen)
+
+
+def clay_batch_repair(codec, full: torch.Tensor, lost: int) -> tuple[int, int]:
+    """MSR repair of chunk `lost` of every object in `full` (B, n, L) through
+    repair_array, from the repair planes of d helpers only; returns (bytes
+    read, bytes a plain k-chunk decode would read). Fails unless exact."""
+    batch, n, length = full.shape
+    S = codec.sub_chunk_no
+    sc = length // S
+    minimum = codec.minimum_to_decode({lost}, set(range(n)) - {lost})
+    planes = [z for off, cnt in codec.get_repair_subchunks(codec._node_of(lost))
+              for z in range(off, off + cnt)]
+    helpers = {
+        c: full[:, c].reshape(batch, S, sc)[:, planes].transpose(0, 1)
+        .reshape(len(planes), batch * sc)
+        for c in minimum
+    }
+    rebuilt = codec.repair_array(lost, helpers, batch * sc)
+    got = rebuilt.reshape(S, batch, sc).transpose(0, 1).reshape(batch, length)
+    if not torch.equal(got, full[:, lost]):
+        raise AssertionError("clay repair_array did not rebuild the lost chunk")
+    return sum(h.numel() for h in helpers.values()), codec.k * batch * length
+
+
+def phase_family_main(factory, ec_bench, codecs) -> None:
+    """Phase 14a: each family through ec_bench --batch (encode, and decode of
+    each erasure set), then its batch encode and decode against the same
+    codec on the CPU; clay's MSR repair of a whole batch."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    for name, plugin, prof, erasure_sets, objects in FAMILIES:
+        params = [x for key, v in prof.items() for x in ("-P", f"{key}={v}")]
+        base = ["-p", plugin, *params, "--batch", str(objects), "-s", str(OBJECT_BYTES)]
+        bench_seconds(ec_bench, base + ["-w", "encode"])
+        for lost in erasure_sets:
+            bench_seconds(
+                ec_bench, base + ["-w", "decode"] + [x for c in lost for x in ("--erased", str(c))])
+        codec, cpu = codecs[name], factory(plugin, dict(prof), device="cpu")
+        data = family_batch(codec, objects, gen)
+        parity = codec.encode_array(data)
+        full = torch.cat([data, parity], dim=1)
+        check = data[:CPU_CHECK_OBJECTS].cpu()
+        if not torch.equal(cpu.encode_array(check), parity[:CPU_CHECK_OBJECTS].cpu()):
+            raise AssertionError(f"{name}: card encode != CPU encode")
+        n = codec.get_chunk_count()
+        for lost in erasure_sets:
+            logical = sorted(codec.logical_index(c) for c in lost)
+            present = [i for i in range(n) if i not in logical]
+            got = codec.decode_array(present, logical, full[:, present])
+            if not torch.equal(got, full[:, logical]):
+                raise AssertionError(f"{name}: decode of {lost} did not rebuild the chunks")
+            cpu_got = cpu.decode_array(present, logical, full[:CPU_CHECK_OBJECTS, present].cpu())
+            if not torch.equal(cpu_got, got[:CPU_CHECK_OBJECTS].cpu()):
+                raise AssertionError(f"{name}: card decode of {lost} != CPU decode")
+        line = (f"  {name}: {objects} x {OBJECT_BYTES} B, chunk {data.shape[-1]} B; encode "
+                f"and decode of {erasure_sets} equal the CPU codec on {CPU_CHECK_OBJECTS} "
+                f"objects and rebuild all {objects}")
+        if name == "clay":
+            read, plain = clay_batch_repair(codec, full, CLAY_REPAIR)
+            line += (f"; MSR repair of chunk {CLAY_REPAIR} via repair_array reads {read} B "
+                     f"({read / plain:.3f} of a k-chunk decode's {plain} B), exact")
+        print(line, flush=True)
+
+
+def load_corpus(plugin, profile, stripe_width):
+    parts = [f"plugin={plugin}", f"stripe-width={stripe_width}"]
+    parts += [f"{key}={v}" for key, v in profile.items()]
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "corpus",
+                     " ".join(parts))
+    with open(os.path.join(d, "content"), "rb") as f:
+        content = f.read()
+    golden = {}
+    for fname in os.listdir(d):
+        if fname.startswith("chunk."):
+            with open(os.path.join(d, fname), "rb") as f:
+                golden[int(fname.split(".")[1])] = f.read()
+    return content, golden
+
+
+def decode_outcome(codec, lost, avail):
+    from ceph_tpu_torch.ec.interface import ErasureCodeError
+
+    try:
+        out = codec.decode(set(lost), avail)
+    except ErasureCodeError as e:
+        return ("errno", e.code)
+    return {i: out[i] for i in lost}
+
+
+def phase_corpus_on_card(factory) -> int:
+    """Phase 14b: the eight corpus profiles of these families on the card:
+    re-encode to the golden chunks; every single and pair erasure rebuilt,
+    or refused with the errno of the same codec on the CPU."""
+    sets = 0
+    for plugin, prof, sw in CORPUS_OTHER:
+        content, golden = load_corpus(plugin, prof, sw)
+        ec, cpu = factory(plugin, dict(prof)), factory(plugin, dict(prof), device="cpu")
+        n = ec.get_chunk_count()
+        if ec.encode(range(n), content) != golden:
+            raise AssertionError(f"{plugin} {prof}: chunks drifted from the corpus")
+        for lost in [(i,) for i in range(n)] + [(i, j) for i in range(n) for j in range(i + 1, n)]:
+            avail = {i: golden[i] for i in range(n) if i not in lost}
+            got = decode_outcome(ec, lost, avail)
+            if got != decode_outcome(cpu, lost, avail):
+                raise AssertionError(f"{plugin} {prof}: erasure {lost} differs from the CPU")
+            if isinstance(got, dict) and got != {i: golden[i] for i in lost}:
+                raise AssertionError(f"{plugin} {prof}: erasure {lost} mis-decoded")
+            sets += 1
+    print(f"  corpus: {len(CORPUS_OTHER)} profiles re-encode to their golden chunks; "
+          f"{sets} single and pair erasure sets rebuilt or refused as on the CPU", flush=True)
+    return sets
+
+
+def phase_service_bursts(factory, EncodeService, codecs) -> None:
+    """Phase 14c: EncodeService bursts of 64 x 4 MiB: the lrc codec (no planar
+    API: per-object fallback), and an m=1 planar codec (one XOR launch)."""
+    blob = np.random.default_rng(SEED + 15).bytes(OBJECTS * OBJECT_BYTES)
+    objs = [blob[i * OBJECT_BYTES:(i + 1) * OBJECT_BYTES] for i in range(OBJECTS)]
+    lrc_prof = next(prof for name, _p, prof, _e, _o in FAMILIES if name == "lrc")
+    for name, plugin, prof in (("lrc", "lrc", lrc_prof), ("xor", XOR_PLUGIN, XOR_PROFILE)):
+        codec = codecs["lrc"] if name == "lrc" else factory(plugin, dict(prof))
+        svc = EncodeService()
+
+        async def burst():
+            return await asyncio.gather(*(svc.encode(codec, o) for o in objs))
+
+        t0 = time.perf_counter()
+        encoded = asyncio.run(burst())
+        seconds = time.perf_counter() - t0
+        cpu = factory(plugin, dict(prof), device="cpu")
+        if encoded[0] != cpu.encode(range(cpu.get_chunk_count()), objs[0]):
+            raise AssertionError(f"EncodeService {name}: object 0 differs from the CPU codec")
+        if name == "xor":
+            half = OBJECT_BYTES // 2
+            for j in (0, OBJECTS - 1):
+                a = np.frombuffer(objs[j][:half], np.uint8)
+                b = np.frombuffer(objs[j][half:], np.uint8)
+                if encoded[j][2] != (a ^ b).tobytes():
+                    raise AssertionError("m=1 parity is not the XOR of the data chunks")
+            if svc.launches != 1 or not codec._xor_ok:
+                raise AssertionError(f"m=1 burst took {svc.launches} launches")
+        print(f"  EncodeService {name} ({codec.k}+{codec.get_chunk_count() - codec.k}): "
+              f"{OBJECTS} x {OBJECT_BYTES} B in {seconds:.4f} s "
+              f"({OBJECTS * OBJECT_BYTES / seconds / 1e9:.3f} GB/s), launches {svc.launches}, "
+              f"objects {svc.objects}; object 0 equals the CPU codec", flush=True)
+
+
+def host_seconds(fn, reps: int) -> float:
+    """Best host-clock seconds of fn() + synchronize over reps, warm."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def phase_family_times(bp, gc, bmx, codecs, smi: str) -> dict:
+    """Phase 15: each new kernel beside its bytes bound and its plain
+    version, at the main path's shapes, and beside the one PyTorch call that
+    computes the same function where there is one (B2 at k=2 is
+    torch.bitwise_xor of its two rows); then each family's batch encode and
+    decode: GB/s, the H2D / card call / D2H split, and one profiled run each
+    (device busy time, of it the new kernels, idle share)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    chunk = OBJECT_BYTES // 4
+    shec, lib = codecs["shec"], codecs["liberation"]
+    enc = shec._encode
+    b3_in = random_bytes((OBJECTS, 4, chunk), gen)
+    b4_in = random_bytes((OBJECTS, 3, chunk), gen)
+    b2_in = random_words(2, 4 * N4, gen)
+    b5_in = lib._rows(random_bytes((OBJECTS, 4, lib.get_chunk_size(OBJECT_BYTES)), gen))
+    cases = {
+        "gf_matmul_bitplane": (
+            "shec k=4 m=3 encode (64, 4, 1 MiB) -> (64, 3, 1 MiB)",
+            lambda: bp.gf_matmul_bitplane(enc.bits_t, b3_in, tables=enc.tables_t),
+            lambda: bp.gf_matmul_bitplane_plain(enc.bits_t, b3_in), b3_in.numel(), None),
+        "xor_reduce": (
+            "lrc local layer (64, 3, 1 MiB) -> (64, 1, 1 MiB)",
+            lambda: bp.xor_reduce(b4_in), lambda: bp.xor_reduce_plain(b4_in), b4_in.numel(),
+            None),
+        "xor_reduce_words": (
+            "m=1 burst (2, 32 Mi) int32 -> (1, 32 Mi)",
+            lambda: gc.xor_reduce_words(b2_in), lambda: gc.xor_reduce_words_plain(b2_in),
+            b2_in.numel() * 4, lambda: torch.bitwise_xor(b2_in[0], b2_in[1])),
+        "xor_rowmatmul": (
+            "liberation k=4 w=7 encode (64, 28, 155648) -> (64, 14, 155648)",
+            lambda: bmx.xor_rowmatmul(lib._encode.bits_t, b5_in, lists=lib._encode.lists_t),
+            lambda: bmx.xor_rowmatmul_plain(lib._encode.bits_t, b5_in), b5_in.numel(), None),
+    }
+    times = {}
+    for name, (shape, kernel, plain, in_bytes, library) in cases.items():
+        out = kernel()
+        out_bytes = out.numel() * out.element_size()
+        ms = cuda_ms(kernel, 20)
+        plain_ms = cuda_ms(plain, 2)
+        library_ms = cuda_ms(library, 20) if library is not None else None
+        moved = in_bytes + out_bytes
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        lib_text = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        print(f"  [{smi}] {name} {shape}: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({moved} B at 3.35 TB/s), roofline share {bound_ms / ms:.3f}, "
+              f"{moved / ms / 1e6:.1f} GB/s; plain {plain_ms:.3f} ms; library call: "
+              f"{lib_text}", flush=True)
+        times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "library_ms": library_ms}
+
+    for name, plugin, prof, erasure_sets, objects in FAMILIES:
+        codec = codecs[name]
+        data = family_batch(codec, objects, gen)
+        host = data.cpu()
+        h2d_ms = cuda_ms(lambda: host.to("cuda"), 3)
+        reps = 1 if name == "clay" else 4
+        enc_s = host_seconds(lambda: codec.encode_array(data), reps)
+        parity = codec.encode_array(data)
+        d2h_ms = cuda_ms(lambda: parity.cpu(), 3)
+        full = torch.cat([data, parity], dim=1)
+        n = codec.get_chunk_count()
+        lost = sorted(codec.logical_index(c) for c in erasure_sets[-1])
+        present = [i for i in range(n) if i not in lost]
+        surv = full[:, present]
+        dec_s = host_seconds(lambda: codec.decode_array(present, lost, surv), reps)
+        nbytes = objects * OBJECT_BYTES
+        parts = []
+        for what, fn in (("encode", lambda: codec.encode_array(data)),
+                         ("decode", lambda: codec.decode_array(present, lost, surv))):
+            # several calls in one window: a window of one short call came
+            # back from torch.profiler with no device events at all; the
+            # launches it saw are printed beside the calls made
+            wall, busy = profiled(lambda: [fn() for _ in range(reps * 3)])
+            device_ms = sum(ms for _n, ms in busy.values())
+            kern_ms = sum(ms for kname, (_n, ms) in busy.items()
+                          if any(k in kname for k in FAMILY_KERNELS))
+            launches = sum(c for kname, (c, _ms) in busy.items()
+                           if any(k in kname for k in FAMILY_KERNELS))
+            parts.append(f"{what} x{reps * 3} under torch.profiler {wall * 1e3:.3f} ms: "
+                         f"device busy {device_ms:.3f} ms, of it the new kernels "
+                         f"{kern_ms:.3f} ms in {launches} launches seen; idle share "
+                         f"{1 - device_ms / (wall * 1e3):.5f}")
+        print(f"  [{smi}] {name} batch of {objects} x 4 MiB: encode {enc_s * 1e3:.3f} ms "
+              f"({nbytes / enc_s / 1e9:.3f} GB/s of object data), decode of {erasure_sets[-1]} "
+              f"{dec_s * 1e3:.3f} ms ({nbytes / dec_s / 1e9:.3f} GB/s); H2D of the data "
+              f"{h2d_ms:.3f} ms, D2H of the parity {d2h_ms:.3f} ms; " + "; ".join(parts),
+              flush=True)
+    return times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; a CUDA card is "
@@ -1200,10 +1636,12 @@ def main() -> int:
     from ceph_tpu_torch.crush import types as crush_types
     from ceph_tpu_torch.crush.compiler import compile_crushmap, decompile_crushmap
     from ceph_tpu_torch.crush.tester import CrushTester
+    from ceph_tpu_torch.ec import bitmatrix as bmx
     from ceph_tpu_torch.ec.registry import factory
     from ceph_tpu_torch.mgr import BalancerModule
     from ceph_tpu_torch.ops import crush_cuda as cc
     from ceph_tpu_torch.ops import cuda_build, gf
+    from ceph_tpu_torch.ops import gf_bitplane as bp
     from ceph_tpu_torch.ops import gf_cuda as gc
     from ceph_tpu_torch.ops import upmap_cuda as uc
     from ceph_tpu_torch.osd import encode_service as es
@@ -1291,6 +1729,28 @@ def main() -> int:
     upmap_times = phase_balancer_times(uc, balance, build_cluster, BalancerModule, OSDMap,
                                        compile_crushmap, round1, bal, smi)
 
+    print("phase 13: EC family kernels vs plain on the card", flush=True)
+    codecs = family_codecs(factory)
+    family_err = phase_family_kernels(bp, gc, bmx, codecs)
+
+    print("phase 14: EC families main path", flush=True)
+    new_wrappers = {"gf_matmul_bitplane": bp.gf_matmul_bitplane, "xor_reduce": bp.xor_reduce,
+                    "xor_reduce_words": gc.xor_reduce_words,
+                    "xor_rowmatmul": bmx.xor_rowmatmul}
+    for wrapper in new_wrappers.values():
+        wrapper.launches = 0
+    phase_family_main(factory, ec_bench, codecs)
+    phase_corpus_on_card(factory)
+    phase_service_bursts(factory, es.EncodeService, codecs)
+    torch.cuda.synchronize()
+    family_launches = {name: w.launches for name, w in new_wrappers.items()}
+    print(f"  launches on the EC families path: {family_launches}", flush=True)
+    if min(family_launches.values()) < 1:
+        raise AssertionError(f"the EC families path never launched {family_launches}")
+
+    print("phase 15: EC family times", flush=True)
+    family_times = phase_family_times(bp, gc, bmx, codecs, smi)
+
     kernels = [{
         "name": "gf_matmul_packed",
         "route": "cuda",
@@ -1328,6 +1788,27 @@ def main() -> int:
         "bound_by": "operations",
         "library_ms": None,
     }]
+    sources = {
+        "gf_matmul_bitplane": ("ceph_tpu_torch/csrc/gf_matmul.cu", "ceph_tpu/ops/gf_bitplane.py:69"),
+        "xor_reduce": ("ceph_tpu_torch/csrc/xor_rowmatmul.cu", "ceph_tpu/ops/gf_bitplane.py:100"),
+        "xor_reduce_words": ("ceph_tpu_torch/csrc/xor_rowmatmul.cu",
+                             "ceph_tpu/ops/gf_pallas.py:154"),
+        "xor_rowmatmul": ("ceph_tpu_torch/csrc/xor_rowmatmul.cu", "ceph_tpu/ec/bitmatrix.py:148"),
+    }
+    for name, (source, replaces) in sources.items():
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": family_launches[name],
+            "max_abs_err": family_err[name],
+            "ms": family_times[name]["ms"],
+            "plain_ms": family_times[name]["plain_ms"],
+            "bound_ms": family_times[name]["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": family_times[name]["library_ms"],
+        })
     left = own_children()
     if left:
         raise AssertionError(f"processes still running: {left}")

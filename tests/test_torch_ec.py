@@ -78,6 +78,59 @@ def test_corpus_profile_encodes_and_recovers(case):
     assert ec.decode_concat(golden)[: len(content)] == content
 
 
+#: the corpus profiles of the other families: (plugin, profile, stripe width)
+OTHER_PROFILES = [
+    ("jerasure", {"k": "4", "m": "2", "w": "5", "technique": "liberation",
+                  "packetsize": "32"}, 4096),
+    ("jerasure", {"k": "4", "m": "2", "w": "6", "technique": "blaum_roth",
+                  "packetsize": "32"}, 4096),
+    ("jerasure", {"k": "6", "m": "2", "technique": "liber8tion", "packetsize": "32"}, 4096),
+    ("shec", {"k": "4", "m": "3", "c": "2"}, 4096),
+    ("shec", {"k": "6", "m": "4", "c": "3"}, 4096),
+    ("lrc", {"k": "4", "m": "2", "l": "3"}, 4096),
+    ("clay", {"k": "4", "m": "2", "d": "5"}, 4096),
+    ("clay", {"k": "8", "m": "4", "d": "11"}, 98304),
+]
+
+
+def decode_outcome(codec, lost, avail):
+    """The rebuilt chunks, or ("errno", code) when the codec refuses."""
+    try:
+        out = codec.decode(set(lost), avail)
+    except Exception as e:  # either package's ErasureCodeError
+        if not hasattr(e, "code"):
+            raise
+        return ("errno", e.code)
+    return {i: out[i] for i in lost}
+
+
+@pytest.mark.parametrize("case", OTHER_PROFILES, ids=profile_id)
+def test_other_family_corpus_profile(case):
+    """The other EC families (bitmatrix, shec, lrc, clay) against their
+    golden chunks: re-encode to them, and every erasure set up to the
+    codec's m is rebuilt, or refused with the same errno, as the JAX
+    package's codec does (clay, an MDS code, must rebuild every one; its
+    refusals are compared only where the port refuses, to bound the run)."""
+    plugin, profile, stripe_width = case
+    content, golden = load_corpus(plugin, profile, stripe_width)
+    ec = factory(plugin, dict(profile), device="cpu")
+    ref = jax_factory(plugin, dict(profile))
+    n = ec.get_chunk_count()
+    assert sorted(golden) == list(range(n))
+    encoded = ec.encode(range(n), content)
+    assert encoded == golden
+    m = n - ec.get_data_chunk_count()
+    for lost_count in range(1, m + 1):
+        for lost in itertools.combinations(range(n), lost_count):
+            avail = {i: golden[i] for i in range(n) if i not in lost}
+            got = decode_outcome(ec, lost, avail)
+            if isinstance(got, dict):
+                assert got == {i: golden[i] for i in lost}, lost
+            if plugin != "clay" or isinstance(got, tuple):
+                assert got == decode_outcome(ref, lost, avail), lost
+    assert ec.decode_concat(golden)[: len(content)] == content
+
+
 @pytest.mark.parametrize("case", [
     ("isa", {"k": "8", "m": "3", "technique": "cauchy"}),
     ("isa", {"k": "5", "m": "2"}),
@@ -128,18 +181,34 @@ def test_profile_plugin_mismatch_and_unknown_plugin():
 
 
 @pytest.mark.parametrize("plugin,profile", [
-    ("shec", {"k": "4", "m": "3", "c": "2"}),
-    ("lrc", {"k": "4", "m": "2", "l": "3"}),
-    ("clay", {"k": "4", "m": "2", "d": "5"}),
     ("native", {"k": "6", "m": "3"}),
-    ("jerasure", {"k": "4", "m": "2", "w": "5", "technique": "liberation"}),
-    ("jerasure", {"k": "4", "m": "2", "w": "6", "technique": "blaum_roth"}),
-    ("jerasure", {"k": "6", "m": "2", "technique": "liber8tion"}),
 ])
 def test_unported_codecs_raise_not_ported(plugin, profile):
     with pytest.raises(ErasureCodeError, match="not ported") as e:
         factory(plugin, dict(profile), device="cpu")
     assert e.value.code == errno.ENOTSUP
+
+
+@pytest.mark.parametrize("plugin,profile", [
+    ("shec", {"k": "4", "m": "3", "c": "2"}),
+    ("lrc", {"k": "4", "m": "2", "l": "3"}),
+    ("clay", {"k": "4", "m": "2", "d": "5"}),
+    ("jerasure", {"k": "4", "m": "2", "w": "5", "technique": "liberation"}),
+    ("jerasure", {"k": "4", "m": "2", "w": "6", "technique": "blaum_roth"}),
+    ("jerasure", {"k": "6", "m": "2", "technique": "liber8tion"}),
+])
+def test_other_family_geometry_matches_reference(plugin, profile):
+    """The codecs that were stubs until the other families were ported
+    build on the CPU with the JAX codec's geometry: chunk counts, the chunk
+    size of a 4 MiB object, the chunk mapping and the sub-chunk count."""
+    ec = factory(plugin, dict(profile), device="cpu")
+    ref = jax_factory(plugin, dict(profile))
+    assert ec.device.type == "cpu"
+    assert (ec.get_chunk_count(), ec.get_data_chunk_count(), ec.get_coding_chunk_count()) == \
+        (ref.get_chunk_count(), ref.get_data_chunk_count(), ref.get_coding_chunk_count())
+    assert ec.get_chunk_size(4 << 20) == ref.get_chunk_size(4 << 20)
+    assert ec.get_chunk_mapping() == ref.get_chunk_mapping()
+    assert ec.get_sub_chunk_count() == ref.get_sub_chunk_count()
 
 
 @pytest.mark.parametrize("plugin,profile", [

@@ -1,6 +1,7 @@
 """The port's ceph_erasure_code_benchmark drop-in
 (python -m ceph_tpu_torch.tools.ec_bench) on the CPU: the reference's
-`seconds \\t KiB` output with the right KiB for each workload."""
+`seconds \\t KiB` output with the right KiB for each workload and plugin
+(batched and exhaustive decodes check what they rebuild)."""
 
 import os
 import re
@@ -15,6 +16,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LINE = re.compile(r"^(\d+\.\d{6})\t(\d+)$")
 
 ISA = ["-p", "isa", "-P", "k=8", "-P", "m=3", "-P", "technique=cauchy"]
+LRC = ["-p", "lrc", "-P", "k=4", "-P", "m=2", "-P", "l=3"]
 
 
 def result_line(out: str) -> tuple[float, int]:
@@ -31,6 +33,16 @@ def result_line(out: str) -> tuple[float, int]:
     (["-p", "jerasure", "-P", "k=4", "-P", "m=2", "-s", "8192", "-w", "decode",
       "-E", "exhaustive", "-e", "2"], 8),
     (ISA + ["-s", "16384", "-w", "decode", "--erased", "0", "--erased", "9"], 16),
+    (LRC + ["-s", "65536", "-i", "2", "-w", "encode", "--batch", "3"], 2 * 64 * 3),
+    (LRC + ["-s", "65536", "-i", "2", "-w", "decode", "--batch", "3", "--erased", "0",
+            "--erased", "5"], 2 * 64 * 3),
+    (["-p", "shec", "-P", "k=4", "-P", "m=3", "-P", "c=2", "-s", "32768", "-i", "3",
+      "-w", "decode", "--batch", "2", "-e", "2"], 3 * 32 * 2),
+    (["-p", "clay", "-P", "k=4", "-P", "m=2", "-P", "d=5", "-s", "8192", "-w", "decode",
+      "-E", "exhaustive", "-e", "2"], 8),
+    (["-p", "jerasure", "-P", "k=4", "-P", "m=2", "-P", "w=7", "-P", "technique=liberation",
+      "-P", "packetsize=32", "-s", "16384", "-w", "decode", "--batch", "2", "--erased", "1",
+      "--erased", "4"], 16 * 2),
 ])
 def test_ec_bench_prints_seconds_and_kib(capsys, argv, kib):
     assert ec_bench.main(argv + ["--device", "cpu"]) == 0

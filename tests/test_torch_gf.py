@@ -15,6 +15,7 @@ from ceph_tpu.ops import gf_bitplane as jbp
 from ceph_tpu_torch.ec import matrices as tmat
 from ceph_tpu_torch.ops import gf as tgf
 from ceph_tpu_torch.ops import gf_bitplane as tbp
+from ceph_tpu_torch.ops import gf_cuda as gc
 
 
 def test_field_tables_identical():
@@ -85,8 +86,9 @@ def test_gf_matmul_bitplane_matches(batch, k, r, length):
     rng = np.random.default_rng(batch * 10 + k)
     mat = rng.integers(0, 256, (r, k), np.uint8)
     data = rng.integers(0, 256, (batch, k, length), np.uint8)
+    bits = tbp.bitplane_matrix(mat, device="cpu")
     got = tbp.gf_matmul_bitplane(
-        tbp.bitplane_matrix(mat, device="cpu"), torch.from_numpy(data)
+        bits, torch.from_numpy(data), tables=torch.from_numpy(gc.nibble_tables(bits.numpy()))
     )
     want = jbp.gf_matmul_bitplane(jbp.bitplane_matrix(mat), jnp.asarray(data))
     assert got.dtype == torch.uint8
@@ -97,10 +99,11 @@ def test_gf_matmul_bitplane_matches(batch, k, r, length):
 
 def test_gf_matmul_bitplane_rejects_bad_shapes():
     mat = tbp.bitplane_matrix(np.ones((2, 4), np.uint8), device="cpu")
+    tables = torch.from_numpy(gc.nibble_tables(mat.numpy()))
     with pytest.raises(ValueError):
-        tbp.gf_matmul_bitplane(mat, torch.zeros((1, 3, 8), dtype=torch.uint8))
+        tbp.gf_matmul_bitplane(mat, torch.zeros((1, 3, 8), dtype=torch.uint8), tables=tables)
     with pytest.raises(TypeError):
-        tbp.gf_matmul_bitplane(mat, torch.zeros((1, 4, 8), dtype=torch.int32))
+        tbp.gf_matmul_bitplane(mat, torch.zeros((1, 4, 8), dtype=torch.int32), tables=tables)
 
 
 def test_xor_reduce_matches():

@@ -10,6 +10,13 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# The suite runs in several processes at once (pytest -n). torch's CPU ops
+# would start one intra-op thread per core in each of them; spinning on the
+# shared cores, those threads slowed the codec tests' loops of small-tensor
+# ops more than twenty-fold. One thread per test process: every xdist worker
+# collects every test module, so this runs in each before any test does.
+torch.set_num_threads(1)
+
 
 def port_files():
     files = [os.path.join(REPO, "chip_smoke.py")]
@@ -36,7 +43,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = port_files()
     assert len(files) > 10
     for part in ("crush/torch_mapper.py", "crush/tester.py", "ops/crush_cuda.py",
-                 "tools/crushtool.py", "tools/crush_bench.py"):
+                 "tools/crushtool.py", "tools/crush_bench.py", "ec/bitmatrix.py",
+                 "ec/shec.py", "ec/lrc.py", "ec/clay.py", "ops/gf_bitplane.py",
+                 "ops/gf_cuda.py"):
         assert os.path.join(REPO, "ceph_tpu_torch", *part.split("/")) in files
     bad = [
         (os.path.relpath(path, REPO), mod)
@@ -62,6 +71,21 @@ def test_default_device_entry_points_raise_without_a_card(tmp_path):
         EncodeService()
     with pytest.raises(RuntimeError, match="cuda"):
         bitplane_matrix([[1, 2]])
+    for plugin, profile in (
+        ("shec", {"k": "4", "m": "3", "c": "2"}),
+        ("lrc", {"k": "4", "m": "2", "l": "3"}),
+        ("clay", {"k": "4", "m": "2", "d": "5"}),
+        ("jerasure", {"k": "4", "m": "2", "w": "7", "technique": "liberation"}),
+        ("jerasure", {"k": "4", "m": "2", "technique": "blaum_roth", "w": "6"}),
+        ("jerasure", {"k": "4", "technique": "liber8tion"}),
+    ):
+        with pytest.raises(RuntimeError, match="cuda"):
+            factory(plugin, dict(profile))
+        assert factory(plugin, dict(profile), device="cpu").device.type == "cpu"
+    from ceph_tpu_torch.tools import ec_bench
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        ec_bench.main(["-p", "lrc", "-P", "k=4", "-P", "m=2", "-P", "l=3", "-s", "4096"])
 
     from ceph_tpu_torch.crush import torch_mapper
     from ceph_tpu_torch.crush.compiler import decompile_crushmap
