@@ -1,26 +1,27 @@
-// xor_rowmatmul.cu — mod-2 row product of a {0,1} matrix with byte rows,
-// for Hopper (sm_90a).
+// xor_rowmatmul.cu — XOR kernels for Hopper (sm_90a): the mod-2 row product
+// of a {0,1} matrix with byte rows, and the XOR of k whole rows.
 //
-// Replaces the XLA function ceph_tpu/ec/bitmatrix.py:xor_rowmatmul, the
-// encode and decode of jerasure's liberation, blaum_roth and liber8tion
-// techniques: an (R, C) {0,1} bit-matrix times (B, C, P) uint8 packet rows
-// -> (B, R, P), where output row i is the XOR of the input rows its matrix
-// row selects. The TPU function bit-slices the bytes and runs one int8
-// contraction per bit plane on the MXU; this kernel XORs the selected rows.
+// xor_rowmatmul_launch replaces the XLA function
+// ceph_tpu/ec/bitmatrix.py:xor_rowmatmul, the encode and decode of
+// jerasure's liberation, blaum_roth and liber8tion techniques: an (R, C)
+// {0,1} bit-matrix times (B, C, P) uint8 packet rows -> (B, R, P), where
+// output row i is the XOR of the input rows its matrix row selects. The TPU
+// function bit-slices the bytes and runs one int8 contraction per bit plane
+// on the MXU; this kernel XORs the selected rows.
 //
-// Given the one-row list "XOR rows 0..k-1" it also replaces two XLA
-// functions that compute the m=1 parity: ceph_tpu/ops/gf_bitplane.py:
-// xor_reduce, (B, k, L) uint8 chunks -> (B, 1, L) (lrc's local layers, an
-// m=1 codec's byte API), and ceph_tpu/ops/gf_pallas.py:xor_reduce_words,
-// (k, N4) int32 planar words -> (1, N4), whose bytes are a (1, k, 4 N4)
-// block (EncodeService's m=1 batch). Each wrapper counts its own launches.
+// xor_rows_launch replaces the two XLA functions that compute the m=1
+// parity, the XOR of rows 0..k-1: ceph_tpu/ops/gf_bitplane.py:xor_reduce,
+// (B, k, L) uint8 chunks -> (B, 1, L) (lrc's local layers, an m=1 codec's
+// byte API), and ceph_tpu/ops/gf_pallas.py:xor_reduce_words, (k, N4) int32
+// planar words -> (1, N4), whose bytes are a (1, k, 4 N4) block
+// (EncodeService's m=1 batch). Each wrapper counts its own launches.
 //
-// What bounds it on an H100: memory. Every input byte is read once and every
-// output byte written once: B * (C + R) * P bytes at 3.35 TB/s. The XORs
-// are one operation per 4 bytes of a selected row, far below the integer
-// rate.
+// What bounds both on an H100: memory. Every input byte is read once and
+// every output byte written once: B * (C + R) * P bytes, and B * (k + 1) * L
+// for the XOR of rows, at 3.35 TB/s. The XORs are one operation per 4 bytes
+// of a selected row, far below the integer rate.
 //
-// What the design does about it:
+// What xor_rowmatmul_kernel does about it:
 //  * The host turns the matrix into per-output-row lists of input rows
 //    (CSR: R + 1 offsets, then the selected row indices, all int32), which
 //    each block stages in shared memory: every thread walks the same list,
@@ -35,8 +36,25 @@
 //  * Lists longer than the default 48 KB of shared memory opt in to more, up
 //    to the 227 KB a block can have (kMaxListWords); the wrapper refuses a
 //    longer list, on either device. C itself is not capped.
-//  * A ragged end (P not a multiple of 16) or unaligned rows take masked
-//    byte loads and stores.
+//
+// Why the XOR of rows has a kernel of its own: given the one-row list
+// [0, k, 0..k-1], the row-list kernel lost to torch.bitwise_xor on the m=1
+// batch. Per 16-byte group it paid a 64-bit division (g / groups), each
+// row's address waited on a list entry read from shared memory, a thread
+// had only k x 16 bytes in flight, the grid was capped at two waves, and
+// data read once was allocated in L1. xor_rows_kernel takes the batch item
+// from blockIdx.y and its 16-byte group from blockIdx.x in 32 bits, with no
+// division; it issues the loads of kRowsStep rows before it XORs them;
+// loads take the read-only path (ld.global.nc) and stores the streaming
+// hint (st.global.cs); the grid covers the whole row, with no cap. On the
+// H100, 2 or 4 groups per thread, 128 to 1024 threads a block and an L2
+// prefetch hint were no faster than one group per thread of 256 threads,
+// and streaming loads (ld.global.cs, ld.global.nc.L1::no_allocate) were
+// slower than ld.global.nc at lrc's local layer (and .cs loads slower
+// still on a first launch after other work).
+//
+// In both kernels a ragged end (a length not a multiple of 16) or unaligned
+// rows take masked byte loads and stores.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -106,6 +124,51 @@ xor_rowmatmul_kernel(const int* __restrict__ lists,  // R + 1 offsets, entries
   }
 }
 
+constexpr int kRowsThreads = 256;
+constexpr int kRowsStep = 4;  // rows whose loads are in flight together
+
+__device__ __forceinline__ void xor16(uint4& acc, uint4 v) {
+  acc.x ^= v.x;
+  acc.y ^= v.y;
+  acc.z ^= v.z;
+  acc.w ^= v.w;
+}
+
+// out[b, 0, :] = XOR of in[b, j, :] for j < k. Thread i of block (x, y)
+// takes the 16-byte group x * kRowsThreads + i of items y, y + gridDim.y,
+// ..., so each load instruction of a warp reads 512 contiguous bytes.
+__global__ void __launch_bounds__(kRowsThreads)
+xor_rows_kernel(const uint8_t* __restrict__ in,  // (B, k, L) strided
+                uint8_t* __restrict__ out,       // (B, 1, L)
+                int k, long batch, long len, long in_sb, long in_sc,
+                int groups, int vec) {
+  const int g = blockIdx.x * kRowsThreads + threadIdx.x;
+  if (g >= groups) return;
+  const long c0 = (long)g * 16;
+  for (long b = blockIdx.y; b < batch; b += gridDim.y) {
+    const uint8_t* src = in + b * in_sb + c0;
+    uint8_t* dst = out + b * len + c0;
+    uint4 acc = make_uint4(0u, 0u, 0u, 0u);
+    if (vec) {
+      for (int j0 = 0; j0 < k; j0 += kRowsStep) {
+        uint4 v[kRowsStep];
+#pragma unroll
+        for (int r = 0; r < kRowsStep; ++r)
+          v[r] = j0 + r < k ? __ldg(reinterpret_cast<const uint4*>(
+                                  src + (long)(j0 + r) * in_sc))
+                            : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+        for (int r = 0; r < kRowsStep; ++r) xor16(acc, v[r]);
+      }
+      __stcs(reinterpret_cast<uint4*>(dst), acc);
+    } else {
+      const int nb = (int)(len - c0 < 16 ? len - c0 : 16);
+      for (int j = 0; j < k; ++j) xor16(acc, load16(src + (long)j * in_sc, 0, nb));
+      store16(dst, acc, 0, nb);
+    }
+  }
+}
+
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() after the launch, 0 on
@@ -148,6 +211,30 @@ extern "C" int xor_rowmatmul_launch(const void* lists, int rows_out,
                          (cudaStream_t)stream>>>(
       (const int*)lists, rows_out, n_words, (const uint8_t*)in,
       (uint8_t*)out, batch, len, in_sb, in_sc, vec);
+  return (int)cudaGetLastError();
+}
+
+// Launch on `stream`; returns cudaGetLastError() after the launch, 0 on
+// success. Writes the XOR of rows 0..k-1 of in, (batch, k, len) bytes whose
+// item b, row j starts at in + b * in_sb + j * in_sc (the last axis
+// contiguous), to out, (batch, 1, len) bytes, contiguous. Rows of up to
+// 2^31 - 256 16-byte groups (32 GiB); a longer row is refused.
+extern "C" int xor_rows_launch(const void* in, void* out, int k, long batch,
+                               long len, long in_sb, long in_sc,
+                               void* stream) {
+  if (k <= 0 || batch < 0 || len < 0 ||
+      (len + 15) / 16 > 0x7FFFFFFFL - kRowsThreads)
+    return (int)cudaErrorInvalidValue;
+  if (batch == 0 || len == 0) return 0;
+  const int groups = (int)((len + 15) / 16);
+  const unsigned blocks_x = (unsigned)((groups + kRowsThreads - 1) / kRowsThreads);
+  const unsigned blocks_y = (unsigned)(batch < 65535 ? batch : 65535);
+  const int vec = len % 16 == 0 && in_sb % 16 == 0 && in_sc % 16 == 0 &&
+                  (uintptr_t)in % 16 == 0 && (uintptr_t)out % 16 == 0;
+  xor_rows_kernel<<<dim3(blocks_x, blocks_y), kRowsThreads, 0,
+                    (cudaStream_t)stream>>>(
+      (const uint8_t*)in, (uint8_t*)out, k, batch, len, in_sb, in_sc, groups,
+      vec);
   return (int)cudaGetLastError();
 }
 

@@ -12,8 +12,8 @@ wrapper over a hand-written CUDA kernel with a plain torch version beside it:
     matrices; the codecs keep them in `ec.rs.CodingTables`); a CPU tensor
     runs `gf_matmul_bitplane_plain`.
   * `xor_reduce(data)`: (B, k, L) -> (B, 1, L), the m=1 parity. A CUDA
-    tensor launches csrc/xor_rowmatmul.cu with the one-row list "XOR every
-    row" (`gf_cuda.launch_xor_rows`); a CPU tensor runs `xor_reduce_plain`.
+    tensor launches csrc/xor_rowmatmul.cu's XOR-of-rows kernel
+    (`gf_cuda.launch_xor_rows`); a CPU tensor runs `xor_reduce_plain`.
 
 The plain version of the matmul is the JAX function's formulation: multiply
 by a constant in GF(2^8) is linear over GF(2), so the matmul is one {0,1}
@@ -209,7 +209,8 @@ def xor_reduce(data: torch.Tensor) -> torch.Tensor:
     if data.device.type != "cuda":
         raise ValueError(f"xor_reduce: unsupported device {data.device}")
     out = gc.launch_xor_rows(data, "xor_reduce")
-    xor_reduce.launches += 1
+    if out.numel():
+        xor_reduce.launches += 1
     return out
 
 

@@ -16,9 +16,10 @@ a direct transcription of the Pallas kernel's arithmetic. Nothing else
 selects between them, and nothing falls back.
 
 `xor_reduce_words` (the m=1 planar parity) is built the same way over
-csrc/xor_rowmatmul.cu, the row-list XOR kernel: `launch_row_lists` binds it
-for `ec.bitmatrix.xor_rowmatmul`, and `launch_xor_rows` hands it the one-row
-list "XOR every row" for `xor_reduce_words` and `gf_bitplane.xor_reduce`.
+csrc/xor_rowmatmul.cu, the XOR kernels: `launch_row_lists` binds its
+row-list kernel for `ec.bitmatrix.xor_rowmatmul`; its XOR-of-rows kernel
+(`xor_rows_launch`) serves `xor_reduce_words` and, through
+`launch_xor_rows`, `gf_bitplane.xor_reduce`.
 """
 
 from __future__ import annotations
@@ -206,6 +207,8 @@ def _xor_lib() -> ctypes.CDLL:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
         fn.argtypes = [p, i, i, p, p, ll, ll, ll, ll, p]
         fn.restype = ctypes.c_int
+        lib.xor_rows_launch.argtypes = [p, p, i, ll, ll, ll, ll, p]
+        lib.xor_rows_launch.restype = ctypes.c_int
         lib.xor_rowmatmul_error_string.argtypes = [ctypes.c_int]
         lib.xor_rowmatmul_error_string.restype = ctypes.c_char_p
     return lib
@@ -253,23 +256,35 @@ def launch_row_lists(lists: torch.Tensor, rows_out: int, data: torch.Tensor,
     return out
 
 
-_xor_lists: dict[tuple[int, torch.device], torch.Tensor] = {}
-
-
-def xor_list(k: int, device: torch.device) -> torch.Tensor:
-    """The one-row list "XOR rows 0..k-1", [0, k, 0, 1, ..., k-1] int32 on
-    `device`, made once per (k, device)."""
-    key = (k, device)
-    if key not in _xor_lists:
-        _xor_lists[key] = torch.tensor([0, k, *range(k)], dtype=torch.int32, device=device)
-    return _xor_lists[key]
+def _xor_rows(data: torch.Tensor, out: torch.Tensor, k: int, batch: int, length: int,
+              in_sb: int, in_sc: int, what: str) -> None:
+    """Launches `xor_rows_launch` on data's device and its current stream.
+    The host path is kept short, since at the m=1 shapes it is a fair part
+    of a call: the raw stream handle, and a device switch only when data
+    lies on another device than the current one."""
+    idx = data.get_device()
+    if idx != torch.cuda.current_device():
+        with torch.cuda.device(idx):
+            return _xor_rows(data, out, k, batch, length, in_sb, in_sc, what)
+    lib = _xor_lib()
+    err = lib.xor_rows_launch(data.data_ptr(), out.data_ptr(), k, batch, length, in_sb, in_sc,
+                              torch._C._cuda_getCurrentRawStream(idx))
+    if err != 0:
+        msg = lib.xor_rowmatmul_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
 def launch_xor_rows(data: torch.Tensor, what: str) -> torch.Tensor:
     """(B, k, L) uint8 CUDA tensor (last axis contiguous, any batch and row
-    strides) -> (B, 1, L) uint8, the XOR of the k rows, by the row-list
-    kernel with the one-row list of `xor_list`. Counts nothing."""
-    return launch_row_lists(xor_list(data.shape[1], data.device), 1, data, what)
+    strides) -> (B, 1, L) uint8, the XOR of the k rows, by
+    csrc/xor_rowmatmul.cu's `xor_rows_launch` on the current stream. Counts
+    nothing: each wrapper counts its own."""
+    in_sb, in_sc = row_strides(data, what)
+    batch, k, length = data.shape
+    out = torch.empty((batch, 1, length), dtype=torch.uint8, device=data.device)
+    if batch and length:
+        _xor_rows(data, out, k, batch, length, in_sb, in_sc, what)
+    return out
 
 
 def _tables_for(packed_mat: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -354,9 +369,8 @@ def xor_reduce_words(words: torch.Tensor) -> torch.Tensor:
     Mirrors the reference ISA plugin's m==1 region-XOR short-circuit
     (ErasureCodeIsa.cc:121-128, xor_op.cc) — XOR commutes with the packing.
     A CPU tensor runs the plain version. A CUDA tensor (contiguous) launches
-    csrc/xor_rowmatmul.cu (`launch_xor_rows`) on its bytes, a (1, k, 4 N4)
-    uint8 view of the same memory, and adds one to
-    `xor_reduce_words.launches`.
+    csrc/xor_rowmatmul.cu's XOR-of-rows kernel on its bytes, read as a
+    (1, k, 4 N4) uint8 block, and adds one to `xor_reduce_words.launches`.
     """
     if not isinstance(words, torch.Tensor):
         raise TypeError("xor_reduce_words takes a torch tensor")
@@ -369,9 +383,13 @@ def xor_reduce_words(words: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"xor_reduce_words: unsupported device {words.device}")
     if not words.is_contiguous():
         raise ValueError("xor_reduce_words: words must be contiguous")
-    out = launch_xor_rows(words.view(torch.uint8)[None], "xor_reduce_words")
-    xor_reduce_words.launches += 1
-    return out[0].view(torch.int32)
+    k, n4 = words.shape
+    out = torch.empty((1, n4), dtype=torch.int32, device=words.device)
+    if n4:
+        # the words' bytes as one (1, k, 4 N4) block, without a view
+        _xor_rows(words, out, k, 1, 4 * n4, 4 * n4 * k, 4 * n4, "xor_reduce_words")
+        xor_reduce_words.launches += 1
+    return out
 
 
 #: kernel launches made by the wrapper (the plain version counts none)

@@ -4,8 +4,9 @@ Port of ceph_tpu/crush/balance.py's `_score_chunk`.
 `upmap_score(up, dev, valid_target, dom, max_dev)` returns the best
 (gain, from, to) move of every PG row:
 
-  * for CUDA tensors it launches csrc/upmap_score.cu, one warp per row, on
-    the current stream;
+  * for CUDA tensors it launches csrc/upmap_score.cu on the current stream:
+    persistent blocks whose warps take one row at a time, the row's sources
+    in registers for rows of 3 and 6 slots;
   * for CPU tensors it runs crush.balance.score_chunk_plain, the plain torch
     version of the same function.
 
@@ -25,8 +26,9 @@ from ceph_tpu_torch.ops import cuda_build
 __all__ = ["MAX_OSDS", "MAX_SLOTS", "STAGED_OSDS", "upmap_score"]
 
 #: the kernel's bounds (UPMAP_MAX_SLOTS, UPMAP_MAX_OSDS in csrc/upmap_score.cu):
-#: a row's sources sit in per-warp shared memory, and the flat index
-#: s * n + t of a candidate fits an int
+#: its generic instantiation keeps a row's sources in per-warp shared memory
+#: (rows of 3 and 6 slots take instantiations that keep them in registers),
+#: and the flat index s * n + t of a candidate fits an int
 MAX_SLOTS = 32
 MAX_OSDS = 1 << 24
 #: maps of up to this many OSDs have the targets' deviations and domains

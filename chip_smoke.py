@@ -56,9 +56,13 @@ row-product kernels. Phases:
       card, bit-exact (gain as float32 bits): round 1 of calc_pg_upmaps on
       the balancer cell's map, its inputs rebuilt as score_round builds
       them (whole-pool launches, as the main path makes, and the JAX
-      package's chunks), and crafted chunks (gain ties, all-illegal rows,
-      NONE slots, unreachable domains, 11-wide rows, 10,000 and 30,000
-      OSDs);
+      package's chunks), and crafted chunks (gain ties, float32 rounding
+      ties between slots at S = 3 and 6, all-illegal rows, NONE slots,
+      unreachable domains, 11-wide rows, 10,000 and 30,000 OSDs), so that
+      every instantiation of the kernel (S = 3, S = 6 and the generic one,
+      each with the targets staged or read from global memory) is checked:
+      the phase runs under torch.profiler and fails unless the kernels it
+      launched are all the instantiations the source's launcher names;
   11. the balancer main path, counts zeroed just before: psim --scenario
       --json twice (byte-identical reports) and once with --measure, then
       BalancerModule.run_once in upmap and crush-compat modes through an
@@ -71,16 +75,19 @@ row-product kernels. Phases:
       operation bound (the integer and float32 operations the function
       needs on the round's data, each at its own rate), its plain version,
       its two ways of reading the per-OSD arrays (staged in shared memory
-      or from global memory), calc_pg_upmaps split into pool
-      mapping, scoring and host greedy/revalidation, the same pass under
+      or from global memory), alternated; the same for a round at 10,000
+      OSDs (the rule-0 rows of x = 0..262,143 on phase 6's map, deviations
+      from their per-OSD counts); three calc_pg_upmaps passes, each split
+      into pool mapping, scoring and host greedy/revalidation, a pass under
       torch.profiler (device busy time, idle share), the scenario's PGs
       mapped per second, and each crush-compat iteration;
   13. the four kernels of the EC families against their plain versions on
       the card, bit-exact: the byte-layout GF(2^8) matmul at shec's encode
       and lrc's global layer (64 x 1 MiB chunks), a shec decode matrix on
       strided survivors, a ragged width, k = 1 and a bit-matrix that is not
-      GF(2^8)'s; the XOR kernel at lrc's local layer, strided, ragged and
-      k = 1, and on planar words at (8, 8 Mi), (2, 32 Mi) and a ragged
+      GF(2^8)'s; the XOR-of-rows kernel at lrc's local layer, strided,
+      ragged, k = 1, rows not 16-byte aligned and more items than grid
+      rows, and on planar words at (8, 8 Mi), (2, 32 Mi) and a ragged
       width; the row product at liberation's encode and decode, ragged and
       strided, and at C = 289;
   14. the EC families' main path, the four new counts zeroed just before
@@ -95,12 +102,19 @@ row-product kernels. Phases:
       fallback) and on an m=1 planar codec (jerasure k=2 m=1, one XOR
       launch);
   15. times: each new kernel (CUDA events) beside its bytes bound and its
-      plain version, and each family's batch encode and decode (GB/s, the
+      plain version (B2 and its library call, torch.bitwise_xor, timed in
+      turns), and each family's batch encode and decode (GB/s, the
       H2D and D2H copies, one profiled run each: device busy time, the new
       kernels' share of it, idle share);
   16. no process this script started is left (nvcc, nvidia-smi and the
       worker processes are all waited for), then a `kernels` JSON line;
   17. the `ok` JSON line, last.
+
+Each kernel is timed three ways: `ms`, its call time (CUDA events around
+back-to-back calls of its wrapper, as every share and comparison uses);
+`held_ms`, its device time (the same with the stream held while the calls
+are enqueued, so no host time enters); `host_us`, its wrapper's host time
+per call. The `kernels` line carries all three.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
 It needs a CUDA card and the repository around it; with neither it fails.
@@ -110,10 +124,12 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import ctypes
 import io
 import json
 import os
 import pickle
+import re
 import subprocess
 import sys
 import time
@@ -183,7 +199,10 @@ class _Span:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of fn() over reps launches, by CUDA events, warm."""
+    """Mean milliseconds of fn() over reps back-to-back calls, by CUDA
+    events, warm: the call time, each kernel's `ms`. A call's host work (a
+    wrapper's checks, allocation and launch) shows in it wherever the host
+    takes longer than the device, and the first call's always does."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -194,6 +213,57 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+#: GPU clock cycles held_ms and host_us hold the stream for each call they
+#: are about to enqueue: about 1 ms at the H100's 1.98 GHz, more than the
+#: host takes to enqueue one call of a wrapper
+HOLD_CYCLES_PER_CALL = 2_000_000
+
+
+def held_ms(fn, reps: int) -> float:
+    """As cuda_ms, but a spin kernel (torch.cuda._sleep) holds the stream
+    while the start event and the calls are enqueued, so the events bracket
+    the calls' device work back to back and no host time enters: the device
+    time, printed beside the call time as `held_ms`."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES_PER_CALL * reps)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps: int) -> float:
+    """Mean host microseconds to enqueue fn() while a spin kernel holds the
+    stream, so the card never holds the host back: the wrapper's own cost
+    per call (`host_us`)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES_PER_CALL * reps)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / reps * 1e6
+
+
+def kernel_times(fn, reps: int) -> dict:
+    """A kernel's three readings: call time (ms), device time (held_ms) and
+    host time per call (host_us)."""
+    return {"ms": cuda_ms(fn, reps), "held_ms": held_ms(fn, reps),
+            "host_us": host_us(fn, reps)}
+
+
+def times_text(t: dict) -> str:
+    return (f"{t['ms']:.4f} ms a call (device time {t['held_ms']:.4f} ms with the stream "
+            f"held; host {t['host_us']:.1f} us a call)")
 
 
 def random_words(rows: int, n4: int, gen: torch.Generator) -> torch.Tensor:
@@ -326,15 +396,17 @@ def phase_times(gc, codec, es, smi: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     words = random_words(K, N4, gen)
     enc = codec._encode
-    kernel_ms = cuda_ms(
+    kt = kernel_times(
         lambda: gc.gf_matmul_packed(enc.packed_t, words, tables=enc.tables_t),
         TIMED_LAUNCHES)
+    kernel_ms = kt["ms"]
     plain_ms = cuda_ms(lambda: gc.gf_matmul_packed_plain(enc.packed_t, words), 3)
     moved = (K + M) * N4 * 4
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
     print(f"  [{smi}] gf_matmul_packed ({K}, {N4}) -> ({M}, {N4}) int32: "
-          f"kernel {kernel_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({moved} B at 3.35 TB/s), roofline share {bound_ms / kernel_ms:.3f}, "
+          f"kernel {times_text(kt)}, bound {bound_ms:.4f} ms "
+          f"({moved} B at 3.35 TB/s), roofline share {bound_ms / kernel_ms:.3f} "
+          f"(of the device time {bound_ms / kt['held_ms']:.3f}), "
           f"{moved / kernel_ms / 1e6:.1f} GB/s; plain {plain_ms:.3f} ms; "
           "library call: none", flush=True)
 
@@ -383,7 +455,7 @@ def phase_times(gc, codec, es, smi: str) -> dict:
           f"whole encode {total_ms:.3f} ms "
           f"({OBJECTS * OBJECT_BYTES / total_ms / 1e6:.3f} GB/s of object data), "
           f"outside the flush {total_ms - flush_ms:.3f} ms", flush=True)
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+    return {**kt, "plain_ms": plain_ms, "bound_ms": bound_ms}
 
 
 # -- the CRUSH path -------------------------------------------------------------
@@ -673,7 +745,8 @@ def phase_crush_times(cc, tm, big, main, plain_ms, smi: str) -> dict:
     stats = {}
     for (rule, result_max), firstn in zip(CRUSH_RULES, (True, False)):
         params = stage_params(big, firstn, result_max, 1, True)
-        ms = cuda_ms(lambda: cc.crush_choose(cm, xs, -1, wv, **params), 10)
+        kt = kernel_times(lambda: cc.crush_choose(cm, xs, -1, wv, **params), 10)
+        ms = kt["ms"]
         draws = torch.zeros(CRUSH_X, dtype=torch.int32, device="cuda")
         cc.crush_choose(cm, xs, -1, wv, draws=draws, **params)
         n_draws = int(draws.sum(dtype=torch.int64))
@@ -691,10 +764,11 @@ def phase_crush_times(cc, tm, big, main, plain_ms, smi: str) -> dict:
             best = min(best, time.perf_counter() - t0)
         m = main[rule]
         print(f"  [{smi}] crush_choose rule {rule} ({'firstn' if firstn else 'indep'} "
-              f"{result_max}, {CRUSH_X} x): kernel {ms:.4f} ms, {n_draws} straw2 draws "
+              f"{result_max}, {CRUSH_X} x): kernel {times_text(kt)}, {n_draws} straw2 draws "
               f"({n_draws / CRUSH_X:.2f} per x) x {ops_per_draw} int ops / "
               f"{INT32_OPS_PER_S:.4g} ops/s = bound {ops_ms:.4f} ms (bytes {bytes_ms:.5f} "
-              f"ms for {moved} B), share {bound_ms / ms:.3f}; plain {plain_ms[rule]:.1f} ms; "
+              f"ms for {moved} B), share {bound_ms / ms:.3f} "
+              f"(of the device time {bound_ms / kt['held_ms']:.3f}); plain {plain_ms[rule]:.1f} ms; "
               "library call: none", flush=True)
         print(f"  [{smi}] map_rule rule {rule}: best of 3 {best:.4f} s = "
               f"{CRUSH_X / best:.1f} mappings/s (kernel {ms / 1e3 / best:.3f} of it); "
@@ -703,7 +777,7 @@ def phase_crush_times(cc, tm, big, main, plain_ms, smi: str) -> dict:
               f"{m['tester_s'] - m['tester_map_s']:.4f} s "
               f"({CRUSH_X / m['tester_s']:.1f} x/s); crushtool --test {m['tool_s']:.4f} s",
               flush=True)
-        stats[rule] = dict(ms=ms, bound_ms=bound_ms, plain_ms=plain_ms[rule])
+        stats[rule] = dict(kt, bound_ms=bound_ms, plain_ms=plain_ms[rule])
     return stats
 
 
@@ -713,6 +787,9 @@ BAL_OSDS = 1024
 BAL_REP_PGS = 262_144
 BAL_EC_PGS = 32_768
 BAL_CHANGES = 2048
+#: calc_pg_upmaps passes timed in phase 12, each on a fresh map: a pass's
+#: host clock spreads by several tenths of a second between runs
+BAL_PASSES = 3
 BAL_SAMPLE = 4096
 BAL_SCENARIO = dict(n_osd=BAL_OSDS, rep_pg_num=BAL_REP_PGS, ec_pg_num=BAL_EC_PGS,
                     seed=1, epochs=1, max_changes=BAL_CHANGES)
@@ -829,10 +906,60 @@ def plain_chunks(balance, args, chunk: int):
     return tuple(torch.cat(p) for p in zip(*parts))
 
 
+#: an instantiation of the scoring kernel, in csrc/upmap_score.cu's launcher
+#: and in the kernel names torch.profiler reports
+UPMAP_INSTANTIATION = re.compile(r"upmap_score_(?:regs<\d+, (?:true|false)>|generic<(?:true|false)>)")
+
+#: csrc/upmap_score.cu with the generic kernel's argmax (one running best,
+#: compared by flat index s * n + t) in the register instantiations, in
+#: place of their per-slot first maxima: phase 12 times it against the
+#: source as it is, which is why the two procedures stay apart
+FLAT_ARGMAX = [
+    ("float (&best)[S],\n    int (&best_t)[S]) {", "float& best, int& best_idx) {"),
+    ("      if (ok && g > best[s]) {\n        best[s] = g;\n        best_t[s] = t;\n      }",
+     "      const int idx = s * n + t;\n"
+     "      if (ok && better(g, idx, best, best_idx)) {\n"
+     "        best = g;\n        best_idx = idx;\n      }"),
+    ("    float best[S];\n    int best_t[S];\n#pragma unroll\n    for (int s = 0; s < S; ++s) {\n"
+     "      best[s] = -inf;\n      best_t[s] = 0;\n    }\n",
+     "    float bg = -inf;\n    int bi = NO_INDEX;\n"),
+    ("over, best, best_t);", "over, bg, bi);"),
+    ("    float bg = -inf;\n    int bi = NO_INDEX;\n#pragma unroll\n    for (int s = 0; s < S; ++s) {\n"
+     "      if (best[s] > bg) {\n        bg = best[s];\n        bi = s * n + best_t[s];\n"
+     "      }\n    }\n", ""),
+]
+
+
+def flat_argmax_lib(uc) -> ctypes.CDLL:
+    """Builds FLAT_ARGMAX's variant of the scoring kernel under _build/ and
+    loads it with the same C signature. Fails if the source no longer has
+    the text the variant replaces."""
+    cb = uc.cuda_build
+    with open(os.path.join(cb.CSRC_DIR, "upmap_score.cu")) as f:
+        src = f.read()
+    for old, new in FLAT_ARGMAX:
+        if src.count(old) < 1:
+            raise AssertionError(f"upmap_score.cu no longer has {old!r}")
+        src = src.replace(old, new)
+    os.makedirs(cb.BUILD_DIR, exist_ok=True)
+    path = os.path.join(cb.BUILD_DIR, "upmap_score_flat_argmax.cu")
+    with open(path, "w") as f:
+        f.write(src)
+    lib_path = path[:-3] + ".so"
+    done = subprocess.run([cb.nvcc(), *cb.NVCC_FLAGS, "-o", lib_path, path],
+                          capture_output=True, text=True)
+    if done.returncode:
+        raise RuntimeError(f"flat-argmax variant build failed:\n{done.stdout}{done.stderr}")
+    lib = ctypes.CDLL(lib_path)
+    lib.upmap_score_launch.argtypes = uc._lib().upmap_score_launch.argtypes
+    lib.upmap_score_launch.restype = ctypes.c_int
+    return lib
+
+
 def crafted_scores(balance, crush_bench, round1):
     """Chunks the scenario does not make: (name, args) on the card."""
     rng = np.random.default_rng(SEED)
-    (up3, dev, valid, dom3, _), (_, _, _, dom6, _) = round1
+    (up3, dev, valid, dom3, _), (up6, _, _, dom6, _) = round1
     n = dev.shape[0] - 1
 
     def cuda(a):
@@ -846,6 +973,18 @@ def crafted_scores(balance, crush_bench, round1):
     cases = [("ties, equal weights", (rows, ties, valid, dom3, 1.0)),
              ("ties, max_dev 0", (rows, ties, valid, dom3, 0.0)),
              ("all-illegal (flat deviations)", (rows, torch.zeros_like(dev), valid, dom3, 1.0))]
+    # float32 rounding ties between slots: half the OSDs 700 + 0..3 ulps of
+    # 700 (2^-14), half -2500 less distinct multiples of 0.5, so on a row's
+    # one best target fdev - tdev (ulp 2^-12) rounds alike for sources that
+    # differ, and the lower slot must win
+    high = rng.random(n) < 0.5
+    ulps = np.where(high, np.float32(700) + rng.integers(0, 4, n).astype(np.float32)
+                    * np.float32(2**-14),
+                    np.float32(-2500) - rng.permutation(n).astype(np.float32) * np.float32(0.5))
+    ulps = cuda(np.concatenate([ulps.astype(np.float32), [np.float32(0)]]))
+    cases.append(("S = 3, float32 rounding ties between slots", (rows, ulps, valid, dom3, 1.0)))
+    cases.append(("S = 6, float32 rounding ties between slots",
+                  (up6[:8192].contiguous(), ulps, valid, dom6, 1.0)))
     holes = rows.clone()
     holes[cuda(rng.random(holes.shape) < 0.25)] = -1
     holes[:64] = -1
@@ -865,42 +1004,67 @@ def crafted_scores(balance, crush_bench, round1):
         cuda(up_big), dev_of(rng.integers(20, 42, CRUSH_OSDS), 30.7),
         cuda(np.concatenate([rng.random(CRUSH_OSDS) > 0.05, [False]])),
         cuda(np.concatenate([dom_big, [np.int32(-2)]]).astype(np.int32)), 1.0)))
-    # past the kernel's shared-memory staging: targets read from global memory
+    # past the kernel's shared-memory staging: targets read from global
+    # memory, in each instantiation
     wide_n = 30_000
-    hosts = np.argsort(rng.random((2048, wide_n // 50)), axis=1)[:, :3]
-    cases.append((f"n = {wide_n:,} (targets not staged in shared memory)", (
-        cuda((hosts * 50 + rng.integers(0, 50, hosts.shape)).astype(np.int32)),
-        dev_of(rng.integers(20, 42, wide_n), 30.7),
-        cuda(np.concatenate([rng.random(wide_n) > 0.05, [False]])),
-        cuda(np.concatenate([np.arange(wide_n) // 50, [-2]]).astype(np.int32)), 1.0)))
+    wide_dev = dev_of(rng.integers(20, 42, wide_n), 30.7)
+    wide_valid = cuda(np.concatenate([rng.random(wide_n) > 0.05, [False]]))
+    wide_dom = cuda(np.concatenate([np.arange(wide_n) // 50, [-2]]).astype(np.int32))
+    for s in (3, 6, 11):
+        hosts = np.argsort(rng.random((2048, wide_n // 50)), axis=1)[:, :s]
+        cases.append((f"S = {s}, n = {wide_n:,} (targets not staged in shared memory)", (
+            cuda((hosts * 50 + rng.integers(0, 50, hosts.shape)).astype(np.int32)),
+            wide_dev, wide_valid, wide_dom, 1.0)))
     return cases
 
 
 def phase_upmap_kernels(uc, balance, tm, build_cluster, crush_bench):
-    """Phase 10: the scoring kernel against its plain version on the card."""
+    """Phase 10: the scoring kernel against its plain version on the card.
+    The launches run under torch.profiler, and the phase fails unless every
+    instantiation that the source's launcher names was launched."""
     t0 = time.perf_counter()
     m = build_cluster(BAL_OSDS, rep_pg_num=BAL_REP_PGS, ec_pg_num=BAL_EC_PGS, device="cuda")
     pools, spread = round1_inputs(balance, tm, m)
     print(f"  round 1 of calc_pg_upmaps on the balancer cell's map (what "
           f"BalancerModule.run_once scores first): inputs rebuilt in "
           f"{time.perf_counter() - t0:.4f} s, spread before {spread}", flush=True)
-    errs = []
-    for name, args in pools:
-        chunk = balance.plain_chunk_rows(args[0].shape[1], args[1].shape[0] - 1)
-        want = plain_chunks(balance, args, chunk)
-        errs.append(score_err(f"round 1, {name}: the main path's whole-pool launch "
-                              f"{tuple(args[0].shape)}", uc.upmap_score(*args), want))
-        up = args[0]
-        chunk_errs = [
-            score_err(f"chunk {lo}", uc.upmap_score(up[lo:lo + chunk], *args[1:]),
-                      tuple(w[lo:lo + chunk] for w in want), quiet=True)
-            for lo in range(0, up.shape[0], chunk)]
-        print(f"  round 1, {name}: {len(chunk_errs)} chunks of {chunk} rows (the JAX "
-              "package's chunking), each launched alone: equal True", flush=True)
-        errs += chunk_errs
     round1 = [args for _, args in pools]
-    for name, args in crafted_scores(balance, crush_bench, round1):
-        errs.append(score_err(name, uc.upmap_score(*args), balance.score_chunk_plain(*args)))
+    cases = [(f"round 1, {name}: the main path's whole-pool launch {tuple(args[0].shape)}",
+              args) for name, args in pools]
+    cases += crafted_scores(balance, crush_bench, round1)
+    chunks = [balance.plain_chunk_rows(args[0].shape[1], args[1].shape[0] - 1)
+              for _, args in cases]
+    wants = [plain_chunks(balance, args, c) for (_, args), c in zip(cases, chunks)]
+    got, chunk_got = [], []
+
+    def launch_all():
+        got.extend(uc.upmap_score(*args) for _, args in cases)
+        # round 1 again in the JAX package's chunks, each launched alone
+        for (_, args), c in zip(cases[:len(pools)], chunks):
+            up = args[0]
+            chunk_got.append([uc.upmap_score(up[lo:lo + c], *args[1:])
+                              for lo in range(0, up.shape[0], c)])
+
+    _, busy = profiled(launch_all)
+    errs = [score_err(name, g, w) for (name, _), g, w in zip(cases, got, wants)]
+    for (name, _), c, want, parts in zip(pools, chunks, wants, chunk_got):
+        errs += [score_err(f"chunk {i}", part, tuple(w[i * c:(i + 1) * c] for w in want),
+                           quiet=True) for i, part in enumerate(parts)]
+        print(f"  round 1, {name}: {len(parts)} chunks of {c} rows (the JAX package's "
+              "chunking), each launched alone: equal True", flush=True)
+    with open(os.path.join(os.path.dirname(os.path.abspath(uc.__file__)), os.pardir, "csrc",
+                           "upmap_score.cu")) as f:
+        named = set(UPMAP_INSTANTIATION.findall(f.read()))
+    ran = {}
+    for kname, (n, _ms) in busy.items():
+        for inst in UPMAP_INSTANTIATION.findall(kname):
+            ran[inst] = ran.get(inst, 0) + n
+    print(f"  instantiations launched in this phase (torch.profiler): "
+          f"{', '.join(f'{k} x{n}' for k, n in sorted(ran.items()))}; the launcher names "
+          f"{len(named)}", flush=True)
+    if not named or set(ran) != named:
+        raise AssertionError(f"phase 10 launched {sorted(ran)}, the launcher names "
+                             f"{sorted(named)}")
     return max(errs), round1, spread
 
 
@@ -1088,50 +1252,71 @@ def profiled(fn) -> tuple[float, dict]:
     return wall, busy
 
 
-def phase_balancer_times(uc, balance, build_cluster, BalancerModule, OSDMap,
-                         compile_crushmap, round1, bal, smi) -> dict:
-    """Phase 12: the scoring kernel over one round beside its bound and its
-    plain version, calc_pg_upmaps split, and each crush-compat iteration."""
-    ms = cuda_ms(lambda: [uc.upmap_score(*a) for a in round1], 10)
+def crush_round(balance, tm, big, rows) -> list[tuple]:
+    """A scoring round at CRUSH_OSDS OSDs on real CRUSH rows: the scorer's
+    inputs for `rows` (rule 0 of `big`, 3 replicas over hosts), every OSD a
+    valid target, dev their per-OSD counts less the equal-weight target."""
+    n = CRUSH_OSDS
+    rows = np.ascontiguousarray(rows, dtype=np.int32)
+    counts = np.bincount(rows[rows != tm.CRUSH_ITEM_NONE], minlength=n)[:n]
+    dev = np.concatenate([(counts - counts.sum() / n).astype(np.float32), [np.float32(0)]])
+    dom = balance._dense_domains(balance.rule_failure_domains(big, 0, n))
+    return [(torch.from_numpy(np.where(rows == tm.CRUSH_ITEM_NONE, -1, rows)).cuda(),
+             torch.from_numpy(dev).cuda(),
+             torch.from_numpy(np.concatenate([np.ones(n, bool), [False]])).cuda(),
+             torch.from_numpy(np.concatenate([dom, [np.int32(-2)]]).astype(np.int32)).cuda(),
+             1.0)]
+
+
+def time_score_round(uc, balance, rnd, label, smi, flat_lib=None) -> dict:
+    """The scoring kernel over one round `rnd` ((up, dev, valid, dom,
+    max_dev) per pool) beside its operation bound and its plain version,
+    then its two ways of reading the per-target arrays, alternated, and
+    with `flat_lib` the kernel against its flat-argmax variant, alternated."""
+    chunks = [balance.plain_chunk_rows(a[0].shape[1], a[1].shape[0] - 1) for a in rnd]
+    want = [plain_chunks(balance, a, c) for a, c in zip(rnd, chunks)]
+    for a, w in zip(rnd, want):
+        score_err(f"{label} {tuple(a[0].shape)}", uc.upmap_score(*a), w)
+    kt = kernel_times(lambda: [uc.upmap_score(*a) for a in rnd], 10)
+    ms = kt["ms"]
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    plain_chunks(balance, round1[0], 1 << 13)
     start.record()
-    for a in round1:
-        plain_chunks(balance, a, 1 << 13)
+    for a, c in zip(rnd, chunks):
+        plain_chunks(balance, a, c)
     end.record()
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(end)
-    candidates = sum(a[0].shape[0] * a[0].shape[1] * (a[1].shape[0] - 1) for a in round1)
+    candidates = sum(a[0].shape[0] * a[0].shape[1] * (a[1].shape[0] - 1) for a in rnd)
     int_ops = fp_ops = 0
-    for a in round1:
-        i, f = score_ops(*a, chunk=balance.plain_chunk_rows(a[0].shape[1], a[1].shape[0] - 1))
+    for a, c in zip(rnd, chunks):
+        i, f = score_ops(*a, chunk=c)
         int_ops, fp_ops = int_ops + i, fp_ops + f
-    moved = sum(a[0].numel() * 4 + a[1].numel() * 9 + a[0].shape[0] * 12 for a in round1)
+    moved = sum(a[0].numel() * 4 + a[1].numel() * 9 + a[0].shape[0] * 12 for a in rnd)
     # the SM runs integer and float32 operations in separate pipes
     int_ms = int_ops / INT32_OPS_PER_S * 1e3
     fp_ms = fp_ops / FP32_OPS_PER_S * 1e3
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     bound_ms = max(int_ms, fp_ms, bytes_ms)
-    print(f"  [{smi}] upmap_score, one round ({' + '.join(str(tuple(a[0].shape)) for a in round1)} "
-          f"rows x {round1[0][1].shape[0] - 1} OSDs = {candidates} candidates): kernel "
-          f"{ms:.4f} ms ({candidates / ms / 1e6:.1f} G candidates/s); the function needs "
+    print(f"  [{smi}] upmap_score, {label} ({' + '.join(str(tuple(a[0].shape)) for a in rnd)} "
+          f"rows x {rnd[0][1].shape[0] - 1} OSDs = {candidates} candidates): kernel "
+          f"{times_text(kt)} ({candidates / ms / 1e6:.1f} G candidates/s); the function needs "
           f"{int_ops} integer ops / {INT32_OPS_PER_S:.4g} ops/s = {int_ms:.4f} ms and "
           f"{fp_ops} float32 ops / {FP32_OPS_PER_S:.4g} ops/s = {fp_ms:.4f} ms "
           f"({(int_ops + fp_ops) / candidates:.3f} per candidate); bound {bound_ms:.4f} ms "
-          f"(bytes {bytes_ms:.5f} ms for {moved} B), share {bound_ms / ms:.3f}; plain "
+          f"(bytes {bytes_ms:.5f} ms for {moved} B), share {bound_ms / ms:.3f} "
+          f"(of the device time {bound_ms / kt['held_ms']:.3f}); plain "
           f"{plain_ms:.1f} ms; library call: none", flush=True)
 
-    # the two ways the kernel reads the per-OSD arrays, alternated at this
-    # cell's n: staged in each block's shared memory, or from global memory
+    # the two ways the kernel reads the per-target arrays, alternated at
+    # this n: staged in each block's shared memory, or from global memory
     lib = uc._lib()
     outs = [tuple(torch.empty(a[0].shape[0], dtype=dt, device="cuda")
-                  for dt in (torch.float32, torch.int32, torch.int32)) for a in round1]
-    want = [uc.upmap_score(*a) for a in round1]
+                  for dt in (torch.float32, torch.int32, torch.int32)) for a in rnd]
 
-    def launch(staged: int) -> None:
+    def launch(staged: int, lib=lib) -> None:
         stream = torch.cuda.current_stream().cuda_stream
-        for (up, dev, valid, dom, max_dev), (g, f, t) in zip(round1, outs):
+        for (up, dev, valid, dom, max_dev), (g, f, t) in zip(rnd, outs):
             err = lib.upmap_score_launch(
                 up.data_ptr(), dev.data_ptr(), valid.data_ptr(), dom.data_ptr(),
                 float(np.float32(max_dev)), dev.shape[0] - 1, up.shape[1], up.shape[0],
@@ -1144,35 +1329,63 @@ def phase_balancer_times(uc, balance, build_cluster, BalancerModule, OSDMap,
         variant[staged].append(cuda_ms(lambda: launch(staged), 10))
         for o, w in zip(outs, want):
             score_err(f"staged={staged}", o, w, quiet=True)
-    print(f"  [{smi}] upmap_score per-OSD arrays, one round, alternated: staged in shared "
+    print(f"  [{smi}] upmap_score per-target arrays, {label}, alternated: staged in shared "
           f"memory {', '.join(f'{x:.4f}' for x in variant[1])} ms; read from global memory "
           f"{', '.join(f'{x:.4f}' for x in variant[0])} ms; both equal the plain version",
           flush=True)
+    if flat_lib is not None:
+        argmax = {"per-slot": [], "flat": []}
+        for kind in ("per-slot", "flat", "per-slot", "flat"):
+            which = lib if kind == "per-slot" else flat_lib
+            argmax[kind].append(cuda_ms(lambda: launch(1, which), 10))
+            for o, w in zip(outs, want):
+                score_err(f"{kind} argmax", o, w, quiet=True)
+        print(f"  [{smi}] upmap_score argmax of the register instantiations, {label}, "
+              f"alternated: per-slot first maxima (the source) "
+              f"{', '.join(f'{x:.4f}' for x in argmax['per-slot'])} ms; the generic kernel's "
+              f"flat-index compare {', '.join(f'{x:.4f}' for x in argmax['flat'])} ms; both "
+              "equal the plain version", flush=True)
+    return {**kt, "plain_ms": plain_ms, "bound_ms": bound_ms}
 
-    m = build_cluster(BAL_OSDS, rep_pg_num=BAL_REP_PGS, ec_pg_num=BAL_EC_PGS, device="cuda")
-    for pid in m.pools:
-        m.pool_mappings(pid)  # the compile cache is warm, as on a balancer tick
-    map_s = []
-    real = m.pool_mappings
 
-    def timed(*args, **kw):
+def phase_balancer_times(uc, balance, tm, build_cluster, BalancerModule, OSDMap,
+                         compile_crushmap, round1, bal, big, crush_rows, smi) -> dict:
+    """Phase 12: the scoring kernel over one round beside its bound and its
+    plain version, at the balancer cell and at CRUSH_OSDS OSDs;
+    calc_pg_upmaps split, and each crush-compat iteration."""
+    times = time_score_round(uc, balance, round1, "one round at the balancer cell", smi,
+                             flat_argmax_lib(uc))
+    time_score_round(uc, balance, crush_round(balance, tm, big, crush_rows[:BAL_REP_PGS]),
+                     f"one round at {CRUSH_OSDS:,} OSDs (rule-0 rows of x = 0.."
+                     f"{BAL_REP_PGS - 1:,})", smi)
+    ms = times["ms"]
+
+    for run in range(BAL_PASSES):
+        m = build_cluster(BAL_OSDS, rep_pg_num=BAL_REP_PGS, ec_pg_num=BAL_EC_PGS,
+                          device="cuda")
+        for pid in m.pools:
+            m.pool_mappings(pid)  # the compile cache is warm, as on a balancer tick
+        map_s = []
+        real = m.pool_mappings
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = real(*args, **kw)
+            map_s.append(time.perf_counter() - t0)
+            return out
+
+        m.pool_mappings = timed
         t0 = time.perf_counter()
-        out = real(*args, **kw)
-        map_s.append(time.perf_counter() - t0)
-        return out
-
-    m.pool_mappings = timed
-    t0 = time.perf_counter()
-    res = balance.calc_pg_upmaps(m, max_deviation=1.0, max_changes=BAL_CHANGES)
-    total = time.perf_counter() - t0
-    greedy = total - sum(map_s) - res.score_seconds
-    print(f"  [{smi}] calc_pg_upmaps ({BAL_OSDS} OSDs, {res.pgs} PG instances, budget "
-          f"{BAL_CHANGES}): {total:.4f} s = pool mapping {sum(map_s):.4f} s "
-          f"({len(map_s)} pools) + scoring {res.score_seconds:.4f} s ({res.rounds} rounds, "
-          f"{res.launches - len(map_s)} kernel launches, ~{res.rounds * ms:.1f} ms of kernel; "
-          f"the rest copies and candidate lists) + host greedy/revalidation {greedy:.4f} s; "
-          f"{res.changes} moves, spread {res.spread_before:.4f} -> {res.spread_after:.4f}",
-          flush=True)
+        res = balance.calc_pg_upmaps(m, max_deviation=1.0, max_changes=BAL_CHANGES)
+        total = time.perf_counter() - t0
+        greedy = total - sum(map_s) - res.score_seconds
+        print(f"  [{smi}] calc_pg_upmaps pass {run + 1} of {BAL_PASSES} ({BAL_OSDS} OSDs, "
+              f"{res.pgs} PG instances, budget {BAL_CHANGES}): {total:.4f} s = pool mapping "
+              f"{sum(map_s):.4f} s ({len(map_s)} pools) + scoring {res.score_seconds:.4f} s "
+              f"({res.rounds} rounds, {res.launches - len(map_s)} kernel launches, "
+              f"~{res.rounds * ms:.1f} ms of kernel; the rest copies and candidate lists) + "
+              f"host greedy/revalidation {greedy:.4f} s; {res.changes} moves, spread "
+              f"{res.spread_before:.4f} -> {res.spread_after:.4f}", flush=True)
     # the same pass on a fresh map under torch.profiler: how long the card
     # is busy (kernels and copies) against the host clock
     m = build_cluster(BAL_OSDS, rep_pg_num=BAL_REP_PGS, ec_pg_num=BAL_EC_PGS, device="cuda")
@@ -1218,7 +1431,7 @@ def phase_balancer_times(uc, balance, build_cluster, BalancerModule, OSDMap,
           f"{', '.join(f'{s:.4f}' for s in per_iter)} s; spread "
           f"{res.get('spread_before', 0.0):.4f} -> {res.get('spread_after', 0.0):.4f}",
           flush=True)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+    return times
 
 
 # -- the other EC families -------------------------------------------------------
@@ -1255,7 +1468,7 @@ CORPUS_OTHER = [
     ("clay", {"k": "8", "m": "4", "d": "11"}, 98304),
 ]
 #: names of the new kernels in a torch.profiler trace
-FAMILY_KERNELS = ("gf_matmul_bytes_kernel", "xor_rowmatmul_kernel")
+FAMILY_KERNELS = ("gf_matmul_bytes_kernel", "xor_rows_kernel", "xor_rowmatmul_kernel")
 
 
 def byte_err(got: torch.Tensor, want: torch.Tensor) -> int:
@@ -1332,6 +1545,8 @@ def phase_family_kernels(bp, gc, bmx, codecs) -> dict:
     b4("B4 strided rows of the physical tensor", phys[:, 4:7])
     b4("B4 ragged L = 1000003", random_bytes((3, 3, 1000003), gen))
     b4("B4 k = 1 (a copy)", random_bytes((4, 1, 12345), gen))
+    b4("B4 rows starting 3 bytes into their buffer (masked path)", phys[:, 4:7, 3:chunk])
+    b4("B4 more items (70,000) than grid rows", random_bytes((70_000, 2, 48), gen))
     # B2: planar words, (k, 8 Mi) and the m=1 burst's (2, 32 Mi)
     for rows, n4 in ((K, N4), (2, 4 * N4), (3, N4 + 37)):
         words = random_words(rows, n4, gen)
@@ -1571,17 +1786,30 @@ def phase_family_times(bp, gc, bmx, codecs, smi: str) -> dict:
     for name, (shape, kernel, plain, in_bytes, library) in cases.items():
         out = kernel()
         out_bytes = out.numel() * out.element_size()
-        ms = cuda_ms(kernel, 20)
+        if library is None:
+            kt, library_ms = kernel_times(kernel, 20), None
+            lib_text = "none"
+        else:
+            # in turns (kernel, library, kernel, library), so that a slot
+            # effect cannot decide the comparison; the means are kept, of
+            # the call times and of the device times
+            turns = [kernel_times(fn, 20) for fn in (kernel, library, kernel, library)]
+            kt = {key: (turns[0][key] + turns[2][key]) / 2 for key in turns[0]}
+            lt = {key: (turns[1][key] + turns[3][key]) / 2 for key in turns[1]}
+            library_ms = lt["ms"]
+            lib_text = f"{times_text(lt)}; in turns: " + "; ".join(
+                f"{who} {t['ms']:.4f} / {t['held_ms']:.4f} ms"
+                for who, t in zip(("kernel", "library", "kernel", "library"), turns))
+        ms = kt["ms"]
         plain_ms = cuda_ms(plain, 2)
-        library_ms = cuda_ms(library, 20) if library is not None else None
         moved = in_bytes + out_bytes
         bound_ms = moved / HBM_BYTES_PER_S * 1e3
-        lib_text = "none" if library_ms is None else f"{library_ms:.4f} ms"
-        print(f"  [{smi}] {name} {shape}: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({moved} B at 3.35 TB/s), roofline share {bound_ms / ms:.3f}, "
+        print(f"  [{smi}] {name} {shape}: kernel {times_text(kt)}, bound {bound_ms:.4f} ms "
+              f"({moved} B at 3.35 TB/s), roofline share {bound_ms / ms:.3f} "
+              f"(of the device time {bound_ms / kt['held_ms']:.3f}), "
               f"{moved / ms / 1e6:.1f} GB/s; plain {plain_ms:.3f} ms; library call: "
               f"{lib_text}", flush=True)
-        times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        times[name] = {**kt, "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "library_ms": library_ms}
 
     for name, plugin, prof, erasure_sets, objects in FAMILIES:
@@ -1726,8 +1954,9 @@ def main() -> int:
     check_balancer_outputs(tm, balance, OSDMap, bal, spread1)
 
     print("phase 12: balancer times", flush=True)
-    upmap_times = phase_balancer_times(uc, balance, build_cluster, BalancerModule, OSDMap,
-                                       compile_crushmap, round1, bal, smi)
+    upmap_times = phase_balancer_times(uc, balance, tm, build_cluster, BalancerModule, OSDMap,
+                                       compile_crushmap, round1, bal, big, crush_main[0]["rows"],
+                                       smi)
 
     print("phase 13: EC family kernels vs plain on the card", flush=True)
     codecs = family_codecs(factory)
@@ -1759,6 +1988,8 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": max_err,
         "ms": times["ms"],
+        "held_ms": times["held_ms"],
+        "host_us": times["host_us"],
         "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"],
         "bound_by": "bytes",
@@ -1771,6 +2002,8 @@ def main() -> int:
         "launches": crush_launches + bal_crush_launches,
         "max_abs_err": crush_err,
         "ms": crush_times[0]["ms"],
+        "held_ms": crush_times[0]["held_ms"],
+        "host_us": crush_times[0]["host_us"],
         "plain_ms": crush_times[0]["plain_ms"],
         "bound_ms": crush_times[0]["bound_ms"],
         "bound_by": "operations",
@@ -1783,6 +2016,8 @@ def main() -> int:
         "launches": upmap_launches,
         "max_abs_err": upmap_err,
         "ms": upmap_times["ms"],
+        "held_ms": upmap_times["held_ms"],
+        "host_us": upmap_times["host_us"],
         "plain_ms": upmap_times["plain_ms"],
         "bound_ms": upmap_times["bound_ms"],
         "bound_by": "operations",
@@ -1804,6 +2039,8 @@ def main() -> int:
             "launches": family_launches[name],
             "max_abs_err": family_err[name],
             "ms": family_times[name]["ms"],
+            "held_ms": family_times[name]["held_ms"],
+            "host_us": family_times[name]["host_us"],
             "plain_ms": family_times[name]["plain_ms"],
             "bound_ms": family_times[name]["bound_ms"],
             "bound_by": "bytes",

@@ -4,15 +4,20 @@ JAX package's (ceph_tpu/crush/balance.py), on the CPU, tolerance 0.
 * the move scorer: `score_chunk_plain` equals the jitted `_score_chunk` on
   the cases of tests/test_torch_upmap_cuda.py (random rows, massive gain
   ties, all-illegal rows, NONE slots, unreachable domains, 11-wide rows, a
-  10,000-OSD cluster), gains compared as float32 bits;
-* the kernel's procedure, emulated in numpy (per row one warp: each lane
-  strides over the targets keeping its best (gain, flat index), then the
+  10,000-OSD cluster, float32 rounding ties between slots at S = 3, 4, 6
+  and 11), gains compared as float32 bits;
+* the kernel's procedure, emulated in numpy (persistent blocks whose warps
+  take rows in a grid-stride loop; per row the hoisted source values and
+  band bits, each lane's stride over the targets keeping per-slot first
+  maxima (S = 3, 6) or one flat-index argmax (the generic kernel), then the
   shuffle-down reduction in its order) equals the plain version — the CPU's
   view of csrc/upmap_score.cu, which only a card can run;
 * `calc_pg_upmaps` and `calc_pg_upmaps_scalar` commit the same
   pg_upmap_items and report the same BalanceResult (launches included: a
   CPU map scores in the JAX package's chunks) on test_balance.py's maps.
 """
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +30,7 @@ from ceph_tpu.sim import build_cluster as jbuild
 from ceph_tpu_torch.crush import balance
 from ceph_tpu_torch.crush.types import ChooseArg
 from ceph_tpu_torch.sim import build_cluster
-from tests.test_torch_upmap_cuda import CASES, as_tensors, score_case
+from tests.test_torch_upmap_cuda import CASES, SOURCE, as_tensors, rounding_ties, score_case
 
 F32 = np.float32
 
@@ -56,50 +61,83 @@ def test_plain_scorer_matches_jax(name):
         # with another (slot, target) — the first one must win
         g = np.asarray(got[0])
         assert np.isfinite(g).sum() > len(g) // 2
+    if name.startswith("ulp"):
+        # sources less than one ulp of the gain apart do give equal gains
+        assert rounding_ties(case) > 0
 
 
 def _better(g, idx, best, best_idx):
     return g > best or (g == best and idx < best_idx)
 
 
+def kernel_constants():
+    """(threads per block, register widths) of csrc/upmap_score.cu."""
+    with open(SOURCE) as f:
+        src = f.read()
+    threads = int(re.search(r"constexpr int kThreads = (\d+);", src).group(1))
+    widths = tuple(int(w) for w in re.findall(r"if \(S == (\d+)\)", src))
+    return threads, widths
+
+
+def persistent_rows(c, resident, warps):
+    """Rows in the order the kernel's persistent blocks take them: grid =
+    min(blocks the rows need, blocks resident on the card); warp w of block
+    b takes rows b * warps + w, then every grid * warps rows."""
+    grid = min(-(-c // warps), resident)
+    for block in range(grid):
+        for warp in range(warps):
+            yield from range(block * warps + warp, c, grid * warps)
+
+
 def emulate_kernel_row(up_row, dev, valid, dom, max_dev):
-    """One warp of upmap_score_kernel, statement for statement."""
+    """One warp of csrc/upmap_score.cu on one row, statement for statement:
+    the staged (tdev, tdom) pairs, the hoisted per-row source values and
+    band bits, each lane's stride over the targets (per-slot first maxima
+    in the register instantiations, which skip the in-row test on rows
+    whose placed slots sit in distinct domains; one flat-index argmax in
+    the generic kernel), then the shuffle-down reduction in its order."""
     n = dev.shape[0] - 1
     s_n = up_row.shape[0]
-    max_dev = F32(max_dev)
-    tdom_s = [int(d) if valid[t] and d >= 0 else -1 for t, d in enumerate(dom[:n])]
+    max_dev, inf, one = F32(max_dev), F32(np.inf), F32(1.0)
+    regs = s_n in kernel_constants()[1]
+    # staged targets: +inf and domain -1 where no move to t is ever legal
+    tgt = [(dev[t], int(dom[t])) if valid[t] and dom[t] >= 0 else (inf, -1)
+           for t in range(n)]
+    # hoisted per row: raw ids, occupied domains, source values, band bits
     frm = [int(f) for f in up_row]
     fc = [min(f, n) if f >= 0 else n for f in frm]
-    fdev = [dev[c] for c in fc]
-    fdom = [int(dom[c]) for c in fc]
+    odom = [int(dom[c]) if f >= 0 else -1 for f, c in zip(frm, fc)]
+    src = [dev[c] if f >= 0 and dom[c] >= 0 else -inf for f, c in zip(frm, fc)]
+    over = [dev[c] > max_dev for c in fc]
+    # the register instantiations leave out the in-row test where the row's
+    # placed slots sit in distinct domains
+    distinct = all(odom[a] < 0 or odom[a] != odom[b]
+                   for a in range(s_n) for b in range(a + 1, s_n))
+    in_row_test = not (regs and distinct)
     lanes = []
     for lane in range(32):
-        best, best_idx = F32(-np.inf), 0x7FFFFFFF
+        best, best_t = [-inf] * s_n, [0] * s_n
+        bg, bi = -inf, 0x7FFFFFFF
         for t in range(lane, n, 32):
-            tdom = tdom_s[t]
-            if tdom < 0:
-                continue
-            tdev = dev[t]
-            in_up = any(f == t for f in frm)
-            occ = any(f >= 0 and fd == tdom for f, fd in zip(frm, fdom))
-            if in_up:
-                continue
-            t_under = tdev < -max_dev
+            tdev, tdom = tgt[t]
+            occ = any(o == tdom for o in odom)
+            if in_row_test and any(f == t for f in frm):
+                tdev = inf
+            under = tdev < -max_dev
             for s in range(s_n):
-                if frm[s] < 0 or fdom[s] < 0:
-                    continue
-                if occ and fdom[s] != tdom:
-                    continue
-                d = F32(fdev[s] - tdev)
-                if not d > F32(1.0):
-                    continue
-                if not (fdev[s] > max_dev or t_under):
-                    continue
-                g = F32(d - F32(1.0))
-                idx = s * n + t
-                if _better(g, idx, best, best_idx):
-                    best, best_idx = g, idx
-        lanes.append((best, best_idx))
+                d = F32(src[s] - tdev)
+                g = F32(d - one)
+                ok = d > one and (over[s] or under) and (not occ or odom[s] == tdom)
+                if regs:
+                    if ok and g > best[s]:
+                        best[s], best_t[s] = g, t
+                elif ok and _better(g, s * n + t, bg, bi):
+                    bg, bi = g, s * n + t
+        if regs:
+            for s in range(s_n):
+                if best[s] > bg:
+                    bg, bi = best[s], s * n + best_t[s]
+        lanes.append((bg, bi))
     for off in (16, 8, 4, 2, 1):
         # __shfl_down_sync: a source lane past 31 returns the caller's own
         lanes = [
@@ -113,15 +151,25 @@ def emulate_kernel_row(up_row, dev, valid, dom, max_dev):
     return best, frm[best_idx // n], best_idx % n
 
 
+@pytest.mark.parametrize("c,resident", [(96, 3), (5, 132), (1000, 7)])
+def test_persistent_rows_cover_each_row_once(c, resident):
+    warps = kernel_constants()[0] // 32
+    rows = list(persistent_rows(c, resident, warps))
+    assert sorted(rows) == list(range(c))
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_emulated_kernel_matches_plain(name):
     up, dev, valid, dom, max_dev = score_case(name)
-    rows = range(up.shape[0]) if dev.shape[0] <= 128 else range(4)
+    # a few resident blocks, so that warps take several rows each
+    order = list(persistent_rows(up.shape[0], 2, kernel_constants()[0] // 32))
+    rows = order if dev.shape[0] <= 128 else order[:4]
     plain = balance.score_chunk_plain(*as_tensors((up, dev, valid, dom, max_dev), "cpu"))
-    for row in rows:
-        g, f, t = emulate_kernel_row(up[row], dev, valid, dom, max_dev)
-        assert F32(g).view(np.int32) == plain[0][row].numpy().view(np.int32), (name, row)
-        assert (f, t) == (int(plain[1][row]), int(plain[2][row])), (name, row)
+    with np.errstate(invalid="ignore"):  # inf - inf in a never-legal candidate
+        for row in rows:
+            g, f, t = emulate_kernel_row(up[row], dev, valid, dom, max_dev)
+            assert F32(g).view(np.int32) == plain[0][row].numpy().view(np.int32), (name, row)
+            assert (f, t) == (int(plain[1][row]), int(plain[2][row])), (name, row)
 
 
 # -- calc_pg_upmaps against the JAX package, on test_balance.py's maps --------

@@ -2,10 +2,12 @@
 (ceph_tpu_torch.ops.gf_bitplane.gf_matmul_bitplane / xor_reduce and
 ceph_tpu_torch.ops.gf_cuda.xor_reduce_words) against the JAX package's XLA
 functions, on the CPU. The CUDA kernels' per-thread procedures
-(csrc/gf_matmul.cu's byte entry point, and csrc/xor_rowmatmul.cu given the
-one-row list "XOR every row": 16 bytes of one batch item per thread, masked
-byte loads at a ragged end, strided rows) are emulated in numpy and held
-against the plain versions; the kernels
+(csrc/gf_matmul.cu's byte entry point: 16 bytes of one batch item per
+thread; csrc/xor_rowmatmul.cu's xor_rows_launch: one 16-byte group per
+thread, the batch item from the block row, the loads of several rows
+issued before the XORs; both with masked byte loads at a ragged end or on
+unaligned rows, and strided rows) are emulated in numpy and held against
+the plain versions; the kernels
 themselves are held against the plain versions on a card by the `gpu` test
 at the end, which imports no JAX:
 
@@ -139,13 +141,59 @@ def emulate_bytes_kernel(tables, buf, batch, k, length, sb, sk):
     return out
 
 
-def emulate_xor_kernel(buf, batch, k, length, sb, sk):
-    """launch_xor_rows: csrc/xor_rowmatmul.cu's procedure with the one-row
-    list of gf_cuda.xor_list -> (batch, 1, length)."""
-    from tests.test_torch_bitmatrix import emulate_row_kernel
+def xor_rows_constants() -> tuple[int, int]:
+    """(kRowsThreads, kRowsStep) of csrc/xor_rowmatmul.cu."""
+    with open(os.path.join(CSRC, "xor_rowmatmul.cu")) as f:
+        src = f.read()
+    return tuple(int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+                 for name in ("kRowsThreads", "kRowsStep"))
 
-    lists = gc.xor_list(k, torch.device("cpu")).numpy()
-    return emulate_row_kernel(lists, 1, buf, batch, length, sb, sk)
+
+def emulate_xor_kernel(buf, batch, k, length, sb, sk, aligned=True, constants=None,
+                       max_grid_y=65535):
+    """launch_xor_rows: csrc/xor_rowmatmul.cu's xor_rows_launch and
+    xor_rows_kernel, thread by thread -> (batch, 1, length). Thread i of
+    block (x, y) takes the 16-byte group x * threads + i of items y,
+    y + grid_y, ...: the loads of `step` rows before their XORs (the vector
+    path: whole aligned groups), or masked byte loads row by row (a ragged
+    length or unaligned rows). `constants` replaces the source's (threads,
+    step) to exercise the tiling at small sizes."""
+    threads, step = constants or xor_rows_constants()
+    groups = -(-length // 16)
+    blocks_x, blocks_y = -(-groups // threads), min(batch, max_grid_y)
+    vec = length % 16 == 0 and sb % 16 == 0 and sk % 16 == 0 and aligned
+    out = np.zeros((batch, 1, length), np.uint8)
+    stores = np.zeros((batch, length), np.int64)
+
+    def load(b, j, c0, nb):
+        v = np.zeros(16, np.uint8)
+        start = b * sb + j * sk + c0
+        v[:nb] = buf[start : start + nb]
+        return v
+
+    for bx in range(blocks_x):
+        for by in range(blocks_y):
+            for tid in range(threads):
+                g = bx * threads + tid
+                if g >= groups:
+                    continue
+                c0 = g * 16
+                nb = 16 if vec else min(16, length - c0)
+                for b in range(by, batch, blocks_y):
+                    acc = np.zeros(16, np.uint8)
+                    if vec:
+                        for j0 in range(0, k, step):
+                            v = [load(b, j0 + r, c0, 16) if j0 + r < k
+                                 else np.zeros(16, np.uint8) for r in range(step)]
+                            for r in range(step):
+                                acc ^= v[r]
+                    else:
+                        for j in range(k):
+                            acc ^= load(b, j, c0, nb)
+                    out[b, 0, c0 : c0 + nb] = acc[:nb]
+                    stores[b, c0 : c0 + nb] += 1
+    assert (stores == 1).all()  # every output byte written exactly once
+    return out
 
 
 def flat(view: torch.Tensor):
@@ -153,6 +201,14 @@ def flat(view: torch.Tensor):
     base = view._base if view._base is not None else view
     buf = base.contiguous().numpy().reshape(-1)
     return buf[view.storage_offset():], view.stride(0), view.stride(1)
+
+
+def aligned_view(rng, batch, k, length, offset):
+    """A strided (batch, k, length) view whose row and batch strides are
+    multiples of 16 bytes, starting `offset` bytes into its buffer."""
+    row = -(-(length + offset) // 16) * 16 + 16
+    base = rng.integers(0, 256, (batch, k + 1, row), np.uint8)
+    return torch.from_numpy(base)[:, 1:, offset : offset + length]
 
 
 @pytest.mark.parametrize("batch,k,r,length,gf_derived,contiguous", [
@@ -184,6 +240,45 @@ def test_xor_kernel_emulation_matches_plain(batch, k, length, contiguous):
     assert np.array_equal(got, bp.xor_reduce_plain(view).numpy())
 
 
+@pytest.mark.parametrize("batch,k,length,layout,max_grid_y", [
+    (3, 5, 16 * 37, "contiguous", 65535),  # whole groups, several blocks and row steps
+    (5, 3, 16 * 9, "contiguous", 2),       # more items than grid rows: the batch loop
+    (2, 4, 16 * 21, "aligned", 65535),     # strided rows on 16-byte strides: vector path
+    (2, 2, 16 * 21, "offset", 65535),      # strided rows, unaligned start: masked path
+    (3, 6, 16 * 11 + 7, "contiguous", 2),  # ragged end: masked path
+    (2, 1, 200, "strided", 65535),         # k = 1, strided rows
+])
+def test_xor_rows_tiling_emulation_matches_plain(batch, k, length, layout, max_grid_y):
+    """The XOR-of-rows kernel's tiling at small block sizes (4 threads, 2
+    rows a step): every block, group, row step and batch item lands once,
+    and the result is the plain version's."""
+    rng = np.random.default_rng(batch * 31 + k * 7 + length)
+    if layout == "contiguous":
+        view = torch.from_numpy(rng.integers(0, 256, (batch, k, length), np.uint8))
+    elif layout in ("aligned", "offset"):
+        view = aligned_view(rng, batch, k, length, 0 if layout == "aligned" else 4)
+    else:
+        view = strided(rng, batch, k, length)
+    buf, sb, sk = flat(view)
+    got = emulate_xor_kernel(buf, batch, k, length, sb, sk,
+                             aligned=view.storage_offset() % 16 == 0,
+                             constants=(4, 2), max_grid_y=max_grid_y)
+    assert np.array_equal(got, bp.xor_reduce_plain(view).numpy())
+
+
+@pytest.mark.parametrize("k,n4", [(2, 4 * 64), (3, 4 * 64 + 37)])
+def test_xor_rows_emulation_of_words_matches_plain(k, n4):
+    """xor_reduce_words' (1, k, 4 N4) byte view through the kernel's
+    procedure at small block sizes equals xor_reduce_words_plain."""
+    rng = np.random.default_rng(k * n4)
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, (k, n4), dtype=np.int64)
+                             .astype(np.int32))
+    as_bytes = words.view(torch.uint8)[None]
+    buf, sb, sk = flat(as_bytes)
+    got = emulate_xor_kernel(buf, 1, k, 4 * n4, sb, sk, constants=(4, 2))
+    assert np.array_equal(got[0].view(np.int32), gc.xor_reduce_words_plain(words).numpy())
+
+
 def test_words_are_the_xor_kernels_bytes():
     """xor_reduce_words hands the kernel a (1, k, 4 N4) byte view of the
     words; the XOR of that view is the XOR of the words."""
@@ -213,6 +308,7 @@ class _FakeFn:
     ("gf_matmul.cu", "gf_matmul_bytes_launch", gc._lib),
     ("gf_matmul.cu", "gf_matmul_packed_launch", gc._lib),
     ("xor_rowmatmul.cu", "xor_rowmatmul_launch", gc._xor_lib),
+    ("xor_rowmatmul.cu", "xor_rows_launch", gc._xor_lib),
 ])
 def test_kernel_source_and_binding_agree(monkeypatch, source, name, loader):
     """The ctypes argument types match the extern "C" signature: one
@@ -278,19 +374,6 @@ def test_cpu_wrappers_count_no_launch():
     gc.xor_reduce_words(data[0].contiguous().view(torch.int32)[:, :10].contiguous())
     assert (bp.gf_matmul_bitplane.launches, bp.xor_reduce.launches,
             gc.xor_reduce_words.launches) == before
-
-
-@pytest.mark.parametrize("k", [1, 3, 9])
-def test_xor_list_is_the_row_list_of_an_all_ones_row(k):
-    """The XOR reductions hand the row-list kernel the lists of a (1, k)
-    all-ones matrix, made once per (k, device)."""
-    from ceph_tpu_torch.ec.bitmatrix import row_lists
-
-    cpu = torch.device("cpu")
-    first = gc.xor_list(k, cpu)
-    assert first.dtype == torch.int32
-    assert np.array_equal(first.numpy(), row_lists(np.ones((1, k), np.uint8)))
-    assert gc.xor_list(k, cpu) is first
 
 
 @pytest.mark.gpu
