@@ -7,11 +7,11 @@ initializes a codec on `device` (default cuda). Composite codecs (lrc's
 layers, clay's scalar MDS codes) build their inner codecs on the same
 device.
 
-Ported: `tpu`, `isa`, `jerasure` (the matrix techniques on ErasureCodeRs,
-liberation / blaum_roth / liber8tion on ErasureCodeBitmatrix), `shec`, `lrc`
-and `clay`. `native`, the C++ plugin of the reference package
-(ceph_tpu/ec/native.py over ceph_tpu/native/), is registered so that a
-profile naming it gets a clear error rather than an unknown-plugin one.
+Registered: `tpu`, `isa`, `jerasure` (the matrix techniques on
+ErasureCodeRs, liberation / blaum_roth / liber8tion on
+ErasureCodeBitmatrix), `shec`, `lrc`, `clay` and `native` (the dlopened C++
+plugin, ec/native.py: it resolves its device like the others but computes on
+the host and returns CPU tensors).
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from ceph_tpu_torch.ec.bitmatrix import BUILDERS, ErasureCodeBitmatrix
 from ceph_tpu_torch.ec.clay import ErasureCodeClay
 from ceph_tpu_torch.ec.interface import ErasureCode, ErasureCodeError, ErasureCodeProfile
 from ceph_tpu_torch.ec.lrc import ErasureCodeLrc
+from ceph_tpu_torch.ec.native import ErasureCodeNative
 from ceph_tpu_torch.ec.rs import ErasureCodeRs
 from ceph_tpu_torch.ec.shec import ErasureCodeShec
 
@@ -85,19 +86,6 @@ class _JerasureSelector:
         return ErasureCodeRs("jerasure", device=self.device).init(profile)
 
 
-class _NotPorted:
-    """Factory for a plugin name the port does not serve yet."""
-
-    def __init__(self, name: str):
-        self.name = name
-
-    def __call__(self, device=None):
-        raise ErasureCodeError(
-            errno.ENOTSUP,
-            f"erasure-code plugin {self.name!r} is not ported to ceph_tpu_torch yet",
-        )
-
-
 def _register_builtin() -> None:
     registry.add("tpu", lambda device=None: ErasureCodeRs("tpu", device=device))
     registry.add("jerasure", _JerasureSelector)
@@ -105,7 +93,7 @@ def _register_builtin() -> None:
     registry.add("shec", ErasureCodeShec)
     registry.add("lrc", ErasureCodeLrc)
     registry.add("clay", ErasureCodeClay)
-    registry.add("native", _NotPorted("native"))
+    registry.add("native", lambda device=None: ErasureCodeNative(device=device))
 
 
 _register_builtin()

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Three main paths, each driven with the launch counts zeroed just before it
+Five main paths, each driven with the launch counts zeroed just before it
 and read just after. The RS erasure-code data path as an OSD meets it: the
 plugin registry (`factory("isa", k=8 m=3 technique=cauchy)`), the batching
 `EncodeService`, and the hand-written GF(2^8) CUDA kernel under both. Then
@@ -18,7 +18,11 @@ kernel) and the mgr `BalancerModule` in upmap and crush-compat modes. Then
 the other EC families (shec, lrc, clay, jerasure's liberation) through
 `ec_bench --batch`, their array APIs, clay's MSR repair, the corpus and
 `EncodeService`, over the hand-written byte-layout GF(2^8) matmul, XOR and
-row-product kernels. Phases:
+row-product kernels. Then the RADOS data path as an EC pool's users meet it:
+MiniCluster puts of 4 MiB objects into an isa k=8 m=3 pool (CRUSH placement,
+encode on the card through the byte-layout matmul, HashInfo crc32c, the
+stores), degraded gets after OSDs die, recovery onto their new homes and deep
+scrub. Phases:
 
   1. the card: name, count, and nvidia-smi's name and power limit;
   2. build every kernel under ceph_tpu_torch/csrc with nvcc (ptxas report);
@@ -106,9 +110,29 @@ row-product kernels. Phases:
       turns), and each family's batch encode and decode (GB/s, the
       H2D and D2H copies, one profiled run each: device busy time, the new
       kernels' share of it, idle share);
-  16. no process this script started is left (nvcc, nvidia-smi and the
+  16. the RADOS data path, the byte-layout matmul's count zeroed before each
+      step and read after it: a MiniCluster on the card over 12 straw2 hosts
+      of 4 OSDs (jewel tunables) with an isa k=8 m=3 cauchy pool (pg_num 256,
+      size 11, indep over hosts), a replicated size-3 pool (pg_num 128) and a
+      clay k=4 m=2 d=5 pool (pg_num 32); 256, 32 and 8 objects of 4 MiB put,
+      16 of the EC pool's overwritten, 3 OSDs on 3 hosts killed, every object
+      read back (degraded where a shard is lost), the 3 marked out and each
+      pool recovered and deep-scrubbed, every object read again; times (put
+      GB/s and ms an object split into placement, the encode call, HashInfo
+      crc32c and store writes; degraded-get GB/s; recover seconds) and the
+      device's idle share over 16 puts under torch.profiler, which must show
+      the kernel in a put and in a degraded get; 16 sampled EC objects' shards
+      against the CPU isa codec; then the same sequence at 8 objects a pool
+      on the card and on the CPU, whose stores must end equal;
+  17. the native plugin built from ceph_tpu_torch/native/ec_plugin.cpp: its
+      k=8 m=3 chunks equal isa's on the card (cauchy, reed_sol_van) on 4
+      objects of 4 MiB; `python -m ceph_tpu_torch.tools.ec_non_regression
+      --check --device cuda` over tests/corpus (17 profiles, native among
+      them); `python -m ceph_tpu_torch.tools.cpu_ec_baseline`'s line, with
+      the host CPU's model (a host number, not the card's);
+  18. no process this script started is left (nvcc, nvidia-smi and the
       worker processes are all waited for), then a `kernels` JSON line;
-  17. the `ok` JSON line, last.
+  19. the `ok` JSON line, last.
 
 Each kernel is timed three ways: `ms`, its call time (CUDA events around
 back-to-back calls of its wrapper, as every share and comparison uses);
@@ -1852,6 +1876,406 @@ def phase_family_times(bp, gc, bmx, codecs, smi: str) -> dict:
     return times
 
 
+# -- phases 16-17: the RADOS data path, and the native plugin and EC tools ----
+
+#: BASELINE.json's north-star profile on an EC pool of 4 MiB objects (the
+#: RADOS/RBD default object size, rbd_default_order 22), over 12 straw2 hosts
+#: of 4 OSDs (jewel tunables): rule 0 chooseleaf indep over hosts, rule 1
+#: chooseleaf firstn over hosts
+RADOS_HOSTS, RADOS_PER_HOST = 12, 4
+EC_POOL, REP_POOL, CLAY_POOL = 1, 2, 3
+#: pool id -> (erasure profile or None, size, pg_num, rule, objects)
+RADOS_POOLS = {
+    EC_POOL: ({"plugin": "isa", "k": "8", "m": "3", "technique": "cauchy"}, 11, 256, 0, 256),
+    REP_POOL: (None, 3, 128, 1, 32),
+    CLAY_POOL: ({"plugin": "clay", "k": "4", "m": "2", "d": "5"}, 6, 32, 0, 8),
+}
+RADOS_OVERWRITES = 16
+RADOS_SAMPLED = 16
+#: objects per pool of the run held against a MiniCluster on the CPU
+RADOS_IDENTITY_OBJECTS = 8
+#: B3, the kernel under every RS put, degraded get and EC recovery
+B3_KERNEL = "gf_matmul_bytes_kernel"
+
+
+def rados_cluster(device):
+    """A MiniCluster on `device` over the 12-host map with the three pools."""
+    from ceph_tpu_torch.crush import builder as cb
+    from ceph_tpu_torch.crush.types import BucketAlg, CrushMap, Tunables
+    from ceph_tpu_torch.osd.osdmap import OSDMap
+    from ceph_tpu_torch.osd.types import TYPE_ERASURE, TYPE_REPLICATED, PgPool
+    from ceph_tpu_torch.rados import MiniCluster
+
+    cmap = CrushMap(tunables=Tunables.jewel())
+    host_ids, host_weights = [], []
+    for h in range(RADOS_HOSTS):
+        items = list(range(h * RADOS_PER_HOST, (h + 1) * RADOS_PER_HOST))
+        b = cb.make_bucket(cmap, -2 - h, BucketAlg.STRAW2, 1, items,
+                           [0x10000] * RADOS_PER_HOST)
+        host_ids.append(b.id)
+        host_weights.append(b.weight)
+    cb.make_bucket(cmap, -1, BucketAlg.STRAW2, 10, host_ids, host_weights)
+    # the EC rule takes up to k + m positions, as the rule Ceph creates for
+    # an erasure-code profile does (make_simple_rule's default stops at 10)
+    cb.make_simple_rule(cmap, 0, -1, 1, "indep", 0).max_size = K + M
+    cb.make_simple_rule(cmap, 1, -1, 1, "firstn", 0)
+    m = OSDMap(crush=cmap, max_osd=cmap.max_devices)
+    profiles = {}
+    for pool, (profile, size, pg_num, rule, _n) in RADOS_POOLS.items():
+        kind = TYPE_REPLICATED if profile is None else TYPE_ERASURE
+        m.pools[pool] = PgPool(pg_num=pg_num, size=size, type=kind, crush_rule=rule)
+        profiles[pool] = profile
+    c = MiniCluster(osdmap=m, profiles=profiles, device=device)
+    # the data path's level-1 dout lines (one per degraded read) go to a
+    # buffer; its log ring keeps them as always
+    c.dlog._stream = io.StringIO()
+    return c
+
+
+def rados_objects(seed: int, per_pool: int | None = None) -> dict:
+    """{(pool, name): bytes} of every object to put, from `seed`."""
+    rng = np.random.default_rng(seed)
+    return {(pool, f"obj-{pool}-{i}"): rng.bytes(OBJECT_BYTES)
+            for pool, (*_, n) in RADOS_POOLS.items()
+            for i in range(n if per_pool is None else per_pool)}
+
+
+def pick_victims(c, objects) -> list[int]:
+    """Three OSDs on three hosts: the homes of data shards 0-2 of the first
+    EC object whose loss leaves every object readable (a replicated object
+    keeps a copy, a clay object loses at most m = 2 shards)."""
+    from ceph_tpu_torch.osd.osdmap import CRUSH_ITEM_NONE
+
+    acting = {key: set(c.acting(*key)[1]) - {CRUSH_ITEM_NONE} for key in objects}
+    for (pool, name) in objects:
+        if pool != EC_POOL:
+            continue
+        victims = c.acting(pool, name)[1][:3]
+        if len({o // RADOS_PER_HOST for o in victims}) < 3:
+            raise AssertionError(f"{name}: data shards 0-2 are not on three hosts: {victims}")
+        if all(len(a & set(victims)) < (len(a) if p == REP_POOL else 3 if p == CLAY_POOL else 4)
+               for (p, _n), a in acting.items()):
+            return victims
+    raise AssertionError("no three OSDs leave every object readable")
+
+
+def store_view(c) -> dict:
+    """Every store's keys, bytes, hinfo and version stamp."""
+    def attrs(a):
+        h = a.get("hinfo")
+        return (a.get("ver"), None if h is None else (h.total_chunk_size,
+                                                       tuple(h.cumulative_shard_hashes)))
+    return {osd: {key: (st.objects[key], attrs(st.attrs.get(key, {})))
+                  for key in st.objects}
+            for osd, st in c.stores.items()}
+
+
+def rados_sequence(c, objects: dict, on_step=None, want: dict | None = None) -> dict:
+    """The data-path sequence (test_thrash_kill_revive_recover and
+    test_remap_after_permanent_loss's API order): put every object,
+    overwrite some of the EC pool's, kill three OSDs on three hosts, read
+    every object back (degraded where a shard is lost), mark them out and
+    recover() each pool, deep-scrub each pool, read every object again.
+    `on_step(name, fn)` runs each step (the full-width run times them);
+    `want` (filled here) holds the bytes last put of each object. Every
+    read-back and scrub is checked; returns the victims and recover counts."""
+    step = on_step or (lambda _name, fn: fn())
+    want = {} if want is None else want
+    want.update(objects)
+    ec_keys = [k for k in objects if k[0] == EC_POOL]
+    rewrites = {k: bytes(reversed(want[k])) for k in ec_keys[:RADOS_OVERWRITES]}
+
+    def put_all():
+        for (pool, name), data in objects.items():
+            c.put(pool, name, data)
+
+    def overwrite():
+        for (pool, name), data in rewrites.items():
+            c.put(pool, name, data)
+            want[(pool, name)] = data
+
+    step("put", put_all)
+    step("overwrite", overwrite)
+    victims = pick_victims(c, objects)
+    for osd in victims:
+        c.kill_osd(osd)
+
+    def read_all():
+        for (pool, name), data in want.items():
+            if c.get(pool, name) != data:
+                raise AssertionError(f"get {pool}/{name} returned other bytes")
+
+    step("degraded get", read_all)
+    for osd in victims:
+        c.osdmap.mark_out(osd)
+    recovered = {}
+
+    def recover():
+        for pool in RADOS_POOLS:
+            recovered[pool] = c.recover(pool)
+
+    step("recover", recover)
+
+    def scrub():
+        for pool in RADOS_POOLS:
+            errors = c.scrub(pool, deep=True)
+            if errors:
+                raise AssertionError(f"deep scrub of pool {pool} after recovery: {errors[:4]}")
+
+    step("deep scrub", scrub)
+    step("get", read_all)
+    return {"victims": victims, "recovered": recovered}
+
+
+class CallTimes:
+    """Seconds spent in chosen callables, by label: each is wrapped where
+    the data path looks it up (an instance or module attribute) and put
+    back by `undo`."""
+
+    def __init__(self):
+        self.seconds: dict[str, float] = {}
+        self._undo = []
+
+    def wrap(self, owner, attr: str, label: str) -> None:
+        fn = getattr(owner, attr)
+        had = attr in vars(owner)
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.seconds[label] = self.seconds.get(label, 0.0) + time.perf_counter() - t0
+
+        setattr(owner, attr, timed)
+        self._undo.append((owner, attr, fn if had else None))
+
+    def undo(self) -> None:
+        for owner, attr, fn in reversed(self._undo):
+            if fn is None:
+                delattr(owner, attr)
+            else:
+                setattr(owner, attr, fn)
+        self._undo.clear()
+
+
+def device_ms(busy: dict, names=None) -> float:
+    return sum(ms for kname, (_n, ms) in busy.items()
+               if names is None or any(k in kname for k in names))
+
+
+def phase_rados_main(bp, factory, smi: str) -> dict:
+    """Phase 16: the RADOS data path at full width on the card, through
+    MiniCluster's entry points; B3's launches are counted per step. Returns
+    the launches of the whole drive."""
+    from ceph_tpu_torch.common import crc
+    from ceph_tpu_torch.osd import ecutil
+    from ceph_tpu_torch.osd.osdmap import CRUSH_ITEM_NONE
+
+    if not crc.HAVE_NATIVE:
+        raise AssertionError("the C crc32c did not load (common/crc.py fell back to numpy)")
+    t0 = time.perf_counter()
+    objects = rados_objects(SEED)
+    c = rados_cluster("cuda")
+    ec = c.codec(EC_POOL)
+    print(f"  map: {RADOS_HOSTS} hosts x {RADOS_PER_HOST} OSDs; pools "
+          + ", ".join(f"{p}: {prof or 'replicated'} size {size} pg_num {pg}, {n} objects"
+                      for p, (prof, size, pg, _r, n) in RADOS_POOLS.items())
+          + f"; {len(objects)} objects of {OBJECT_BYTES} B made in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    ec_keys = [k for k in objects if k[0] == EC_POOL]
+    launches = {}
+    times = {}
+    profiles = {}
+
+    def on_step(name, fn):
+        bp.gf_matmul_bitplane.launches = 0
+        if name == "put":
+            # the EC pool's puts, timed part by part (the wrappers' own cost
+            # is a few microseconds a call); the last 16 under torch.profiler
+            calls = CallTimes()
+            calls.wrap(c, "acting", "placement")
+            calls.wrap(ec, "encode", "encode (H2D, kernel, D2H, bytes)")
+            calls.wrap(ecutil, "ceph_crc32c", "HashInfo crc32c")
+            for st in c.stores.values():
+                calls.wrap(st, "write", "store writes")
+            timed_keys = ec_keys[:-16]
+            t = time.perf_counter()
+            for key in timed_keys:
+                c.put(*key, objects[key])
+            torch.cuda.synchronize()
+            put_s = time.perf_counter() - t
+            calls.undo()
+            wall, busy = profiled(lambda: [c.put(*key, objects[key]) for key in ec_keys[-16:]])
+            if not busy:  # as for the degraded gets below
+                print("  torch.profiler returned no device event for 16 puts; putting them "
+                      "again under it", flush=True)
+                wall, busy = profiled(lambda: [c.put(*key, objects[key]) for key in ec_keys[-16:]])
+            profiles["put"] = (wall, busy)
+            rest = [k for k in objects if k[0] != EC_POOL]
+            t = time.perf_counter()
+            for key in rest:
+                c.put(*key, objects[key])
+            rest_s = time.perf_counter() - t
+            n = len(timed_keys)
+            split = "; ".join(f"{label} {s / n * 1e3:.3f}" for label, s in calls.seconds.items())
+            other = put_s - sum(calls.seconds.values())
+            times["put"] = {"gbps": n * OBJECT_BYTES / put_s / 1e9, "ms": put_s / n * 1e3}
+            print(f"  [{smi}] put of {n} EC objects (4 MiB, k=8 m=3): {put_s:.3f} s, "
+                  f"{times['put']['gbps']:.4f} GB/s, {put_s / n * 1e3:.3f} ms an object = "
+                  f"{split}; other {other / n * 1e3:.3f} ms; the other pools' "
+                  f"{len(rest)} puts {rest_s:.3f} s", flush=True)
+            kernel = device_ms(busy, [B3_KERNEL])
+            print(f"  [{smi}] 16 EC puts under torch.profiler: {wall * 1e3:.3f} ms, device busy "
+                  f"{device_ms(busy):.3f} ms, of it B3 {kernel:.3f} ms; idle share "
+                  f"{1 - device_ms(busy) / (wall * 1e3):.5f}; device events: "
+                  + ", ".join(f"{k} x{cnt} {ms:.3f} ms" for k, (cnt, ms) in sorted(busy.items())),
+                  flush=True)
+        elif name == "degraded get":
+            # the EC objects with a data shard on a down OSD (a hole in the
+            # acting set) need a decode; their gets are timed, the last 16
+            # under torch.profiler, then every object of every pool is read
+            k = ec.get_data_chunk_count()
+            degraded = [key for key in ec_keys if CRUSH_ITEM_NONE in c.acting(*key)[1][:k]]
+            t = time.perf_counter()
+            for key in degraded[:-16]:
+                if c.get(*key) != want[key]:
+                    raise AssertionError(f"degraded get {key} returned other bytes")
+            torch.cuda.synchronize()
+            get_s = time.perf_counter() - t
+            n = len(degraded) - 16
+            wall, busy = profiled(lambda: [c.get(*key) for key in degraded[-16:]])
+            if not busy:
+                # a window of short calls has come back from torch.profiler
+                # with no device event at all (not even the copies); once
+                # more, said aloud
+                print("  torch.profiler returned no device event for 16 degraded gets; "
+                      "profiling them again", flush=True)
+                wall, busy = profiled(lambda: [c.get(*key) for key in degraded[-16:]])
+            profiles[name] = (wall, busy)
+            times[name] = {"gbps": n * OBJECT_BYTES / get_s / 1e9, "ms": get_s / n * 1e3}
+            print(f"  [{smi}] degraded get of {n} EC objects: {get_s:.3f} s, "
+                  f"{times[name]['gbps']:.4f} GB/s, {get_s / n * 1e3:.3f} ms an object; 16 more "
+                  f"under torch.profiler: device busy {device_ms(busy):.3f} ms of "
+                  f"{wall * 1e3:.3f} ms, B3 {device_ms(busy, [B3_KERNEL]):.3f} ms; idle share "
+                  f"{1 - device_ms(busy) / (wall * 1e3):.5f}", flush=True)
+            fn()
+        else:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name] = {"s": time.perf_counter() - t}
+        launches[name] = bp.gf_matmul_bitplane.launches
+
+    want = {}
+    out = rados_sequence(c, objects, on_step, want)
+    print(f"  killed OSDs {out['victims']} (hosts "
+          f"{[o // RADOS_PER_HOST for o in out['victims']]}); recover {times['recover']['s']:.3f} s, "
+          f"shards rebuilt {out['recovered']}; deep scrub of every pool {times['deep scrub']['s']:.3f} s, "
+          f"clean; every object read back after recovery in {times['get']['s']:.3f} s", flush=True)
+    print(f"  B3 launches by step: {launches}", flush=True)
+    if launches["put"] < 1 or launches["degraded get"] < 1:
+        raise AssertionError(f"B3 did not launch on both the puts and the degraded gets: {launches}")
+    for step in ("put", "degraded get"):
+        if not any(B3_KERNEL in k for k in profiles[step][1]):
+            raise AssertionError(f"torch.profiler saw no {B3_KERNEL} in a {step}: "
+                                 f"{sorted(profiles[step][1])}")
+    if sum(out["recovered"].values()) < 1:
+        raise AssertionError("recover() rebuilt no shard")
+    # sampled EC objects: the stored shards are what the isa codec on the
+    # CPU makes of the same bytes
+    cpu = factory("isa", {k: v for k, v in RADOS_POOLS[EC_POOL][0].items() if k != "plugin"},
+                  device="cpu")
+    n = cpu.get_chunk_count()
+    for key in ec_keys[RADOS_OVERWRITES:RADOS_OVERWRITES + RADOS_SAMPLED]:
+        pg, acting = c.acting(*key)
+        chunks = cpu.encode(range(n), want[key])
+        for shard, osd in enumerate(acting):
+            if c.stores[osd].objects[(EC_POOL, pg, key[1], shard)] != chunks[shard]:
+                raise AssertionError(f"{key} shard {shard} differs from the CPU isa codec")
+    print(f"  {RADOS_SAMPLED} sampled EC objects: every stored shard equals the CPU isa "
+          f"codec's; C crc32c loaded", flush=True)
+    total = sum(launches.values())
+    del c, objects, out, want
+    return {"launches": total, "times": times}
+
+
+def phase_rados_identity() -> None:
+    """Phase 16b: the same sequence at RADOS_IDENTITY_OBJECTS objects a pool
+    on the card and on the CPU: every store ends equal (keys, bytes, hinfo,
+    version stamps)."""
+    objects = rados_objects(SEED + 1, RADOS_IDENTITY_OBJECTS)
+    views = []
+    for device in ("cuda", "cpu"):
+        c = rados_cluster(device)
+        t = time.perf_counter()
+        out = rados_sequence(c, objects)
+        views.append((store_view(c), out["recovered"], time.perf_counter() - t))
+    if views[0][0] != views[1][0] or views[0][1] != views[1][1]:
+        raise AssertionError("the card cluster's stores differ from the CPU cluster's")
+    keys = sum(len(v) for v in views[0][0].values())
+    print(f"  identity at {RADOS_IDENTITY_OBJECTS} objects a pool: {keys} stored shards and "
+          f"copies equal on the card ({views[0][2]:.2f} s) and the CPU ({views[1][2]:.2f} s); "
+          f"recovered {views[0][1]} on both", flush=True)
+
+
+#: plugin=native against the port's isa on the card, on 4 objects of 4 MiB
+NATIVE_OBJECTS = 4
+
+
+def phase_native_and_tools(factory, smi: str) -> None:
+    """Phase 17: libec_native built from the port's ec_plugin.cpp into
+    _build/; its k=8 m=3 chunks equal the port's isa on the card for both
+    techniques; the corpus gate `python -m ceph_tpu_torch.tools.
+    ec_non_regression --check --device cuda` (the native profile among its
+    17); the CPU baseline tool's line beside the host CPU's model."""
+    from ceph_tpu_torch.native import build
+
+    t = time.perf_counter()
+    path = build.build_plugin("native")
+    print(f"  built {os.path.relpath(path, os.path.dirname(os.path.abspath(__file__)))} in "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    data = torch.randint(0, 256, (NATIVE_OBJECTS, K, OBJECT_BYTES // K), dtype=torch.uint8,
+                         device="cuda", generator=gen)
+    for technique in ("cauchy", "reed_sol_van"):
+        prof = {"k": str(K), "m": str(M), "technique": technique}
+        native, isa = factory("native", dict(prof)), factory("isa", dict(prof))
+        t = time.perf_counter()
+        got = native.encode_array(data)
+        native_s = time.perf_counter() - t
+        want = isa.encode_array(data)
+        if got.device.type != "cpu" or not torch.equal(got, want.cpu()):
+            raise AssertionError(f"native {technique} chunks differ from isa's on the card")
+        obj = bytes(data[0].cpu().numpy().tobytes())
+        if native.encode(range(K + M), obj) != isa.encode(range(K + M), obj):
+            raise AssertionError(f"native {technique} byte API differs from isa's")
+        print(f"  native {technique}: {NATIVE_OBJECTS} x 4 MiB parity equal to isa on the "
+              f"card (host encode {native_s * 1e3:.1f} ms)", flush=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    for argv in (["-m", "ceph_tpu_torch.tools.ec_non_regression", "--check", "--device", "cuda"],
+                 ["-m", "ceph_tpu_torch.tools.cpu_ec_baseline"]):
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, *argv], cwd=here, capture_output=True, text=True,
+                              timeout=600)
+        seconds = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"{' '.join(argv)} exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+        lines = proc.stdout.splitlines()
+        if argv[1].endswith("ec_non_regression"):
+            checked = [line for line in lines if line.startswith("check ")]
+            if len(checked) != 17 or not all(line.endswith(": ok") for line in checked) or \
+                    not any("plugin=native" in line for line in checked):
+                raise AssertionError(f"corpus check output: {lines}")
+            print(f"  ec_non_regression --check --device cuda: {len(checked)} profiles ok, "
+                  f"the native one among them, in {seconds:.2f} s", flush=True)
+        else:
+            line = json.loads(lines[-1])
+            print(f"  cpu_ec_baseline (the host's CPU, not the card; {smi}): "
+                  f"{json.dumps(line)}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; a CUDA card is "
@@ -1980,6 +2404,13 @@ def main() -> int:
     print("phase 15: EC family times", flush=True)
     family_times = phase_family_times(bp, gc, bmx, codecs, smi)
 
+    print("phase 16: the RADOS data path (MiniCluster) on the card", flush=True)
+    rados = phase_rados_main(bp, factory, smi)
+    phase_rados_identity()
+
+    print("phase 17: the native plugin and the EC tools", flush=True)
+    phase_native_and_tools(factory, smi)
+
     kernels = [{
         "name": "gf_matmul_packed",
         "route": "cuda",
@@ -2036,7 +2467,8 @@ def main() -> int:
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": family_launches[name],
+            "launches": family_launches[name] + (rados["launches"] if name == "gf_matmul_bitplane"
+                                                 else 0),
             "max_abs_err": family_err[name],
             "ms": family_times[name]["ms"],
             "held_ms": family_times[name]["held_ms"],

@@ -45,7 +45,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for part in ("crush/torch_mapper.py", "crush/tester.py", "ops/crush_cuda.py",
                  "tools/crushtool.py", "tools/crush_bench.py", "ec/bitmatrix.py",
                  "ec/shec.py", "ec/lrc.py", "ec/clay.py", "ops/gf_bitplane.py",
-                 "ops/gf_cuda.py"):
+                 "ops/gf_cuda.py", "rados/cluster.py", "ec/native.py",
+                 "native/build.py", "common/crc.py"):
         assert os.path.join(REPO, "ceph_tpu_torch", *part.split("/")) in files
     bad = [
         (os.path.relpath(path, REPO), mod)
@@ -107,6 +108,19 @@ def test_default_device_entry_points_raise_without_a_card(tmp_path):
         crush_bench.main(["--pgs", "16", "--osds", "100"])
     # the CPU is there when named
     assert CrushTester(cmap, device="cpu").device.type == "cpu"
+
+    from ceph_tpu_torch.osd.osdmap import OSDMap
+    from ceph_tpu_torch.rados import MiniCluster
+    from ceph_tpu_torch.tools import ec_non_regression
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        MiniCluster(osdmap=OSDMap(crush=cmap, max_osd=cmap.max_devices))
+    osdmap = OSDMap(crush=cmap, max_osd=cmap.max_devices)
+    assert MiniCluster(osdmap=osdmap, device="cpu").osdmap.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="cuda"):
+        factory("native", {"k": "4", "m": "2"})
+    with pytest.raises(RuntimeError, match="cuda"):
+        ec_non_regression.main(["--check"])
 
 
 def test_explicit_cpu_and_unknown_devices():
