@@ -1,0 +1,370 @@
+#!/usr/bin/env python
+"""daemon_bench: EC write/read throughput through the LIVE daemon path.
+
+Boots real monitors + OSD daemons over real TCP in one process, creates an
+EC pool, and drives concurrent client object writes — the full pipeline:
+client op -> primary -> batch-encode service (planar GF(2^8) launches on
+the daemons' device) -> shard fan-out -> acks. Reports daemon-path GB/s and
+the launch-coalescing ratio, as distinct from the raw kernel figure.
+
+Port of the reference package's `tools/daemon_bench.py`, its in-process run
+only. `--device` (default cuda, which raises without a card) is where every
+daemon's codecs and EncodeService run. `--mgr`, `--recovery`, `--chaos`,
+`--multiprocess` and `--client-worker` need modules not ported yet and
+raise instead of running.
+
+Usage:
+    python -m ceph_tpu_torch.tools.daemon_bench [--osds 6] [--size 262144]
+        [--objects 96] [--concurrency 24] [--k 4 --m 2] [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import json
+import os
+import sys
+import time
+
+from ceph_tpu_torch.device import resolve_device
+
+#: options whose modes need modules this package does not have yet
+NOT_PORTED = ("mgr", "recovery", "chaos", "multiprocess", "client_worker")
+
+
+def parse_args(argv: list[str] | None = None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--osds", type=int, default=6)
+    ap.add_argument("--size", type=int, default=262144)
+    ap.add_argument("--objects", type=int, default=96)
+    ap.add_argument("--concurrency", type=int, default=24)
+    ap.add_argument("--k", type=int, default=4)
+    ap.add_argument("--m", type=int, default=2)
+    ap.add_argument("--device", default=None,
+                    help="where the daemons' codecs run: cuda (default; "
+                         "raises without a card) or cpu")
+    ap.add_argument("--pool", default="ec", choices=("ec", "rep"),
+                    help="pool flavor: ec (k+m profile) or rep "
+                         "(3-replica, the balanced-read A/B substrate)")
+    ap.add_argument("--read-policy", default="primary",
+                    choices=("primary", "balance", "localize"),
+                    help="client read policy for the read leg "
+                         "(rados_read_policy); balance/localize spread "
+                         "reads over clean acting members and take the "
+                         "EC direct-shard path")
+    ap.add_argument("--hot-set", type=int, default=0,
+                    help="read leg hits only the first N objects, "
+                         "round-robin (the hot-object shape balanced "
+                         "reads exist for); 0 = read back everything "
+                         "once")
+    # wire fast-path knobs (A/B runs; env CEPH_TPU_MS_* overrides win)
+    ap.add_argument("--envelope-format", default=None,
+                    choices=("binary", "json"),
+                    help="ms_envelope_format for every daemon + client")
+    ap.add_argument("--cork-max", type=int, default=None,
+                    help="ms_cork_max_frames (1 = no write coalescing)")
+    ap.add_argument("--subop-batch", default=None, choices=("on", "off"),
+                    help="ms_subop_batch (same-peer sub-op coalescing)")
+    ap.add_argument("--stack", default="auto",
+                    choices=("tcp", "local", "auto"),
+                    help="transport A/B: tcp pins ms_local_stack=false; "
+                         "local/auto negotiate the Unix-socket + shm-ring "
+                         "LocalStack for the co-located daemons (auto is "
+                         "the production default — remote peers still "
+                         "fall back to TCP per connection)")
+    ap.add_argument("--mgr", action="store_true",
+                    help="run an active MgrService during the bench: "
+                         "every OSD pushes telemetry reports on "
+                         "mgr_report_interval, and the result carries "
+                         "push-store vs pull-fallback scrape times "
+                         "(the telemetry-overhead A/B substrate)")
+    ap.add_argument("--multiprocess", action="store_true",
+                    help="every daemon a real OS process (vstart) + "
+                         "--clients client worker processes")
+    ap.add_argument("--clients", type=int, default=4,
+                    help="client worker processes (multiprocess mode)")
+    ap.add_argument("--objectstore", default="memstore",
+                    choices=("memstore", "kstore-file"),
+                    help="OSD store in multiprocess mode; memstore matches "
+                         "the single-process bench (MemDB), kstore-file "
+                         "adds a per-txn fsync'd WAL")
+    ap.add_argument("--run-dir", default=None)
+    ap.add_argument("--recovery", action="store_true",
+                    help="recovery engine A/B: healed objects/s batched "
+                         "vs one-at-a-time, client p99 during the storm")
+    ap.add_argument("--recovery-objects", type=int, default=400)
+    ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
+                    help="run the seeded chaos scenario against a live "
+                         "cluster (tools/chaos_tool.py) and report its "
+                         "oracle verdict")
+    # internal: this invocation is one client worker of a multiprocess run
+    ap.add_argument("--client-worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--worker-id", type=int, default=0,
+                    help=argparse.SUPPRESS)
+    return ap.parse_args(argv)
+
+
+def read_counts(d: dict) -> dict:
+    """The read-serving slice of one OSD's perf dump: who actually
+    carried the read leg (primary ops vs balanced replica serves vs EC
+    direct-shard ranges), plus bounces."""
+    return {
+        "op_r": d.get("op_r", 0),
+        "read_balanced": d.get("read_balanced", 0),
+        "read_shard_direct": d.get("read_shard_direct", 0),
+        "read_redirected": d.get("read_redirected", 0),
+    }
+
+
+async def main(args) -> dict:
+    from ceph_tpu_torch.common.config import Config
+    from ceph_tpu_torch.mon import MonMap, Monitor
+    from ceph_tpu_torch.osd import OSDMap
+    from ceph_tpu_torch.osd.daemon import OSDService
+    from ceph_tpu_torch.rados.client import Rados
+
+    cfg = Config()
+    cfg.set("mon_lease", 0.1)
+    cfg.set("mon_election_timeout", 0.4)
+    cfg.set("osd_heartbeat_interval", 0.5)
+    cfg.set("osd_heartbeat_grace", 5)
+    if args.envelope_format is not None:
+        cfg.set("ms_envelope_format", args.envelope_format)
+    if args.cork_max is not None:
+        cfg.set("ms_cork_max_frames", args.cork_max)
+    if args.subop_batch is not None:
+        cfg.set("ms_subop_batch", args.subop_batch == "on")
+    if args.stack == "tcp":
+        cfg.set("ms_local_stack", False)
+
+    from ceph_tpu_torch.vstart import initial_osdmap
+
+    base = initial_osdmap(args.osds)
+
+    monmap = MonMap(addrs=[("127.0.0.1", 0)] * 3)
+    mons = [Monitor(r, monmap, base, config=cfg, device=args.device)
+            for r in range(3)]
+    for m in mons:
+        await m.bind()
+    for m in mons:
+        m.go()
+    osds = {}
+    for i in range(args.osds):
+        o = OSDService(i, monmap, config=cfg, device=args.device)
+        await o.start()
+        osds[i] = o
+
+    mgr = None
+    if args.mgr:
+        from ceph_tpu_torch.mgr import MgrService
+
+        cfg.set("mgr_report_interval", 0.5)
+        mgr = MgrService("mgr.bench", monmap, config=cfg)
+        await mgr.start()
+        deadline = time.monotonic() + 30
+        while not mgr.active:
+            if time.monotonic() > deadline:
+                raise RuntimeError("mgr never went active")
+            await asyncio.sleep(0.05)
+
+    rados = Rados("client.bench", monmap, config=cfg, device=args.device)
+    await rados.connect()
+    if args.pool == "rep":
+        await rados.mon_command(
+            "osd pool create",
+            {"pool_id": 1, "crush_rule": 1, "size": 3, "pg_num": 16},
+        )
+    else:
+        await rados.mon_command(
+            "osd erasure-code-profile set",
+            {"name": "bench",
+             "profile": {"plugin": "tpu", "k": str(args.k),
+                         "m": str(args.m)}},
+        )
+        await rados.mon_command(
+            "osd pool create",
+            {"pool_id": 1, "crush_rule": 0,
+             "erasure_code_profile": "bench", "pg_num": 16},
+        )
+    io = rados.io_ctx(1)
+    if args.read_policy != "primary":
+        io.read_policy = args.read_policy
+    payload = bytes(range(256)) * (args.size // 256)
+
+    # warm: peering + first-compile of the planar kernel at this shape
+    await asyncio.gather(
+        *(io.write_full(f"warm-{i}", payload) for i in range(4))
+    )
+
+    async def stream(worker: int, count: int):
+        for j in range(count):
+            await io.write_full(f"o-{worker}-{j}", payload)
+
+    per = max(1, args.objects // args.concurrency)
+    before = {
+        i: (o.encode_service.launches, o.encode_service.objects)
+        for i, o in osds.items()
+    }
+
+    def wire_counts() -> dict:
+        """Sub-op wire cost across the fleet (frames-per-op source)."""
+        tot = {"subop_frames": 0, "subop_ops": 0, "frames_out": 0,
+               "bytes_coalesced": 0, "bytes_zero_copy": 0}
+        for o in osds.values():
+            d = o.perf.dump()
+            md = o.messenger.perf.dump()
+            tot["subop_frames"] += (
+                d.get("subop_direct", 0) + d.get("subop_batch_tx", 0)
+            )
+            tot["subop_ops"] += (
+                d.get("subop_direct", 0) + d.get("subop_batch_tx_ops", 0)
+            )
+            tot["frames_out"] += md.get("frames_out", 0)
+            tot["bytes_coalesced"] += md.get("bytes_coalesced", 0)
+            tot["bytes_zero_copy"] += md.get("bytes_zero_copy", 0)
+        tot["bytes_zero_copy"] += rados.objecter.messenger.perf.dump().get(
+            "bytes_zero_copy", 0
+        )
+        return tot
+
+    wire0 = wire_counts()
+    t0 = time.perf_counter()
+    await asyncio.gather(
+        *(stream(w, per) for w in range(args.concurrency))
+    )
+    elapsed = time.perf_counter() - t0
+    wire1 = wire_counts()
+    n_writes = per * args.concurrency
+    wire = {k: wire1[k] - wire0[k] for k in wire0}
+    total_bytes = per * args.concurrency * len(payload)
+    launches = sum(
+        o.encode_service.launches - before[i][0] for i, o in osds.items()
+    )
+    objects = sum(
+        o.encode_service.objects - before[i][1] for i, o in osds.items()
+    )
+
+    # read-back leg; with --hot-set the whole leg hammers a few objects
+    # (one primary each) — the shape where the read policy matters
+    reads0 = {i: read_counts(o.perf.dump()) for i, o in osds.items()}
+    t0 = time.perf_counter()
+    if args.hot_set:
+        hot = [f"o-0-{j % per}" for j in range(args.hot_set)]
+
+        async def stream_hot(w: int):
+            for j in range(per):
+                await io.read(hot[(w + j) % len(hot)])
+
+        await asyncio.gather(
+            *(stream_hot(w) for w in range(args.concurrency))
+        )
+        read_bytes = per * args.concurrency * len(payload)
+    else:
+        await asyncio.gather(*(
+            io.read(f"o-{w}-{j}")
+            for w in range(args.concurrency) for j in range(per)
+        ))
+        read_bytes = total_bytes
+    read_elapsed = time.perf_counter() - t0
+    read_dist = {
+        i: {
+            k: v - reads0[i][k]
+            for k, v in read_counts(o.perf.dump()).items()
+        }
+        for i, o in osds.items()
+    }
+
+    # what the client's OSD sessions actually negotiated (the uds->shm
+    # upgrade is per connection; "local" means at least one made it)
+    client_stacks = {
+        c.stack for c in rados.objecter.messenger._conns.values()
+    }
+    stack_used = (
+        "local" if client_stacks & {"uds", "shm"} else "tcp"
+    )
+
+    mgr_stats = None
+    if mgr is not None:
+        from ceph_tpu_torch.mgr.prometheus import PrometheusExporter
+
+        # let every OSD's next push report land in the store
+        deadline = time.monotonic() + 20
+        while len(mgr.metrics.daemons) < args.osds:
+            if time.monotonic() > deadline:
+                break
+            await asyncio.sleep(0.1)
+        t0 = time.perf_counter()
+        push_text = await mgr.prometheus_scrape()
+        push_ms = (time.perf_counter() - t0) * 1e3
+        # the pre-push exporter path: per-scrape `perf dump` admin
+        # round-trips to every OSD (what the store replaces)
+        puller = PrometheusExporter(rados.objecter)
+        t0 = time.perf_counter()
+        pull_text = await puller.collect()
+        pull_ms = (time.perf_counter() - t0) * 1e3
+        mgr_stats = {
+            "daemons_reporting": len(mgr.metrics.daemons),
+            "scrape_push_ms": round(push_ms, 3),
+            "scrape_pull_ms": round(pull_ms, 3),
+            "push_series": push_text.count("\n"),
+            "pull_series": pull_text.count("\n"),
+        }
+        await mgr.stop()
+
+    await rados.shutdown()
+    for o in osds.values():
+        await o.stop()
+    for m in mons:
+        await m.stop()
+    result = {
+        "mode": "single-process",
+        "ncores": os.cpu_count(),
+        "write_gbps": total_bytes / elapsed / 1e9,
+        "read_gbps": read_bytes / read_elapsed / 1e9,
+        "read_policy": args.read_policy,
+        "read_distribution": read_dist,
+        "objects": objects,
+        "launches": launches,
+        "coalescing": objects / max(1, launches),
+        "object_size": len(payload),
+        "k": args.k,
+        "m": args.m,
+        "osds": args.osds,
+        # sub-op wire frames per client write (fan-out coalescing
+        # effectiveness: < k+m means same-peer sub-ops shared frames)
+        "frames_per_op": wire["subop_frames"] / max(1, n_writes),
+        "subop_frames": wire["subop_frames"],
+        "subop_ops": wire["subop_ops"],
+        "bytes_coalesced": wire["bytes_coalesced"],
+        "stack": stack_used,
+        "bytes_zero_copy": wire1["bytes_zero_copy"],
+        "envelope_format": str(cfg.get("ms_envelope_format")),
+        "cork_max_frames": int(cfg.get("ms_cork_max_frames")),
+        "subop_batch": bool(cfg.get("ms_subop_batch")),
+    }
+    if mgr_stats is not None:
+        result["mgr"] = mgr_stats
+    return result
+
+
+
+def run(argv: list[str] | None = None) -> dict:
+    """Parse `argv`, run the in-process bench, return its result dict."""
+    args = parse_args(argv)
+    asked = [name for name in NOT_PORTED
+             if getattr(args, name) not in (None, False)]
+    if asked:
+        raise NotImplementedError(
+            "daemon_bench: --" + ", --".join(a.replace("_", "-") for a in asked)
+            + " not ported to ceph_tpu_torch yet"
+        )
+    args.device = resolve_device(args.device)
+    return asyncio.run(asyncio.wait_for(main(args), 600))
+
+
+if __name__ == "__main__":
+    result = run()
+    json.dump({k: (round(v, 3) if isinstance(v, float) else v)
+               for k, v in result.items()}, sys.stdout)
+    print()

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Five main paths, each driven with the launch counts zeroed just before it
+Six main paths, each driven with the launch counts zeroed just before it
 and read just after. The RS erasure-code data path as an OSD meets it: the
 plugin registry (`factory("isa", k=8 m=3 technique=cauchy)`), the batching
 `EncodeService`, and the hand-written GF(2^8) CUDA kernel under both. Then
@@ -22,7 +22,10 @@ row-product kernels. Then the RADOS data path as an EC pool's users meet it:
 MiniCluster puts of 4 MiB objects into an isa k=8 m=3 pool (CRUSH placement,
 encode on the card through the byte-layout matmul, HashInfo crc32c, the
 stores), degraded gets after OSDs die, recovery onto their new homes and deep
-scrub. Phases:
+scrub. Then the live daemon path as a cluster's clients meet it: three
+monitors, twelve OSD daemons and a Rados client in this process over
+loopback, EC writes encoded by each primary's EncodeService, degraded reads
+and recovery decoding through it, all over the GF(2^8) kernel. Phases:
 
   1. the card: name, count, and nvidia-smi's name and power limit;
   2. build every kernel under ceph_tpu_torch/csrc with nvcc (ptxas report);
@@ -130,9 +133,27 @@ scrub. Phases:
       --check --device cuda` over tests/corpus (17 profiles, native among
       them); `python -m ceph_tpu_torch.tools.cpu_ec_baseline`'s line, with
       the host CPU's model (a host number, not the card's);
-  18. no process this script started is left (nvcc, nvidia-smi and the
+  18. the live daemon path, B1's count zeroed before each window and read
+      after it: B1 warmed at the pool's shape first, then 3 monitors, 12 OSD
+      daemons (a host each, straw2, jewel; rule 0 takes k + m) and a Rados
+      client in this process on the card; pool 1 isa k=8 m=3 cauchy (pg_num
+      64), pool 2 replicated size 3 (pg_num 32); the write window (128 x 4
+      MiB into pool 1 at concurrency 32, 16 into pool 2, 8 partial
+      overwrites, 16 rewrites traced and 16 under torch.profiler), a read of
+      every object, 2 OSDs stopped and marked down, the degraded-read window
+      (every pool-1 object), the recovery window (the 2 back on empty
+      stores, as after a disk replacement, until the PGs are clean and the
+      pushes stop), every object read again; every read exact, B1 launched
+      in each window and no B1 call raised, every stored pool-1 shard and
+      its hinfo digest equal to the CPU isa codec's, the acting positions
+      recovery left without their shard counted; times
+      (write and read GB/s, ms an object, the put's tracer spans, the idle
+      share, B1's widths and its time at the most common one beside its
+      bound, degraded-read GB/s, recovery seconds); then the port's
+      daemon_bench at the reference's README configuration;
+  19. no process this script started is left (nvcc, nvidia-smi and the
       worker processes are all waited for), then a `kernels` JSON line;
-  19. the `ok` JSON line, last.
+  20. the `ok` JSON line, last.
 
 Each kernel is timed three ways: `ms`, its call time (CUDA events around
 back-to-back calls of its wrapper, as every share and comparison uses);
@@ -1255,7 +1276,6 @@ def profiled(fn) -> tuple[float, dict]:
     """Runs fn under torch.profiler; returns its host-clock seconds and
     {name: (count, ms)} of the kernels and copies the card ran meanwhile
     (the opening op's few microseconds included)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1268,12 +1288,19 @@ def profiled(fn) -> tuple[float, dict]:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return wall, device_busy(prof)
+
+
+def device_busy(prof) -> dict[str, tuple[int, float]]:
+    """{name: (count, ms)} of the kernels and copies a profile saw on the card."""
+    from torch.autograd import DeviceType
+
     busy: dict[str, tuple[int, float]] = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             n, ms = busy.get(e.name, (0, 0.0))
             busy[e.name] = (n + 1, ms + e.device_time_total / 1e3)
-    return wall, busy
+    return busy
 
 
 def crush_round(balance, tm, big, rows) -> list[tuple]:
@@ -2276,6 +2303,564 @@ def phase_native_and_tools(factory, smi: str) -> None:
                   f"{json.dumps(line)}", flush=True)
 
 
+# -- the live daemon path -------------------------------------------------------
+
+#: phase 18: 3 mons and DAEMON_OSDS OSDs (a host each) and a client in this
+#: process over loopback; pool 1 isa k=8 m=3 cauchy, pool 2 replicated
+DAEMON_OSDS = 12
+DAEMON_EC_PROFILE = {"plugin": "isa", "k": str(K), "m": str(M), "technique": "cauchy"}
+DAEMON_PG_NUM = {EC_POOL: 64, REP_POOL: 32}
+DAEMON_OBJECTS = {EC_POOL: 128, REP_POOL: 16}
+DAEMON_CONCURRENCY = 32
+DAEMON_PARTIAL = 8
+#: full rewrites of pool-1 objects traced (spans), then under torch.profiler
+DAEMON_WINDOW = 16
+DAEMON_VICTIMS = (3, 7)
+DAEMON_RECOVERY_S = 300
+#: recovery is done when every PG is clean and no push came for this many
+#: polls in a row (0.2 s apart; a map epoch that holds the loop for seconds
+#: counts as one poll)
+DAEMON_QUIET_POLLS = 25
+#: daemon_bench at the reference's README configuration (its defaults:
+#: 6 OSDs, k=4 m=2, 96 x 256 KiB, concurrency 24)
+DAEMON_BENCH_ARGV = ["--device", "cuda"]
+#: B1, the kernel under every daemon-path encode, degraded read and rebuild
+B1_KERNEL = "gf_matmul_packed_kernel"
+
+
+def daemon_config():
+    """The daemons' shared config: the monitors' default lease and election
+    timing, and daemon_bench's heartbeat interval. Every map epoch makes each
+    OSD place every PG with the scalar CRUSH mapper (about 5 ms a PG at 11
+    positions), so an epoch holds the one event loop for seconds;
+    daemon_bench's 0.1 s monitor lease would lose the quorum to that. The
+    grace outlasts the victims' whole time down: a peer keeps a down OSD's
+    last heartbeat stamp, and reports the revived OSD failed at once when
+    that stamp is older than the grace (ROADMAP §C); the victims are marked
+    down by command instead."""
+    from ceph_tpu_torch.common.config import Config
+
+    cfg = Config()
+    for key, value in (("osd_heartbeat_interval", 0.5), ("osd_heartbeat_grace", 120)):
+        cfg.set(key, value)
+    return cfg
+
+
+class DaemonCluster:
+    """Monitors, OSD daemons and a client of the port, all on `device`."""
+
+    def __init__(self, device):
+        from ceph_tpu_torch.mon import MonMap
+
+        self.device = device
+        self.cfg = daemon_config()
+        self.monmap = MonMap(addrs=[("127.0.0.1", 0)] * 3)
+        self.mons, self.osds, self.rados = [], {}, None
+        #: the leader's placements of the epoch `placed` last read
+        self._placed, self._placed_epoch = {}, None
+
+    async def start(self):
+        from ceph_tpu_torch.mon import Monitor
+        from ceph_tpu_torch.rados.client import Rados
+        from ceph_tpu_torch.vstart import initial_osdmap
+
+        base = initial_osdmap(DAEMON_OSDS)
+        # rule 0 takes k + m positions (make_simple_rule's default stops at 10)
+        base.crush.rules[0].max_size = K + M
+        self.mons = [Monitor(r, self.monmap, base, config=self.cfg, device=self.device)
+                     for r in range(3)]
+        for m in self.mons:
+            await m.bind()
+        for m in self.mons:
+            m.go()
+        for i in range(DAEMON_OSDS):
+            await self.start_osd(i)
+        self.rados = Rados("client.smoke", self.monmap, config=self.cfg, device=self.device)
+        await self.rados.connect()
+        await self.rados.mon_command("osd erasure-code-profile set",
+                                     {"name": "smoke", "profile": dict(DAEMON_EC_PROFILE)})
+        await self.rados.mon_command("osd pool create", {
+            "pool_id": EC_POOL, "crush_rule": 0, "erasure_code_profile": "smoke",
+            "pg_num": DAEMON_PG_NUM[EC_POOL]})
+        await self.rados.mon_command("osd pool create", {
+            "pool_id": REP_POOL, "crush_rule": 1, "size": 3, "pg_num": DAEMON_PG_NUM[REP_POOL]})
+        for osd in self.osds.values():
+            osd.codec(EC_POOL)  # every OSD's codec, so its B1 calls can be watched
+        await self.wait_until(self.pgs_clean, 600, "every PG active")
+
+    async def start_osd(self, osd_id: int) -> None:
+        """An OSD daemon on an empty store (a new disk under the same id)."""
+        from ceph_tpu_torch.osd.daemon import OSDService
+
+        self.osds[osd_id] = OSDService(osd_id, self.monmap, config=self.cfg, device=self.device)
+        await self.osds[osd_id].start()
+
+    @property
+    def leader(self):
+        """The monitor leading the quorum, or None during an election."""
+        return next((m for m in self.mons if m.is_leader), None)
+
+    async def wait_until(self, pred, timeout: float, what: str):
+        """Polls `pred` every 0.2 s (it may read every store) until true."""
+        loop = asyncio.get_running_loop()
+        end = loop.time() + timeout
+        while not pred():
+            if loop.time() > end:
+                raise AssertionError(f"timed out after {timeout} s waiting for {what}")
+            await asyncio.sleep(0.2)
+
+    def down(self, osds, down=True) -> bool:
+        leader = self.leader
+        return leader is not None and all(leader.osdmap.is_down(o) == down for o in osds)
+
+    def placed(self, pool: int, ps: int):
+        """(up, up_primary, acting, primary) on the leader's map, memoized
+        for its epoch, or None during an election."""
+        leader = self.leader
+        if leader is None:
+            return None
+        m = leader.osdmap
+        if self._placed_epoch != m.epoch:
+            self._placed, self._placed_epoch = {}, m.epoch
+        if (pool, ps) not in self._placed:
+            self._placed[(pool, ps)] = m.pg_to_up_acting_osds(pool, ps)
+        return self._placed[(pool, ps)]
+
+    def pgs_clean(self, backfill_too=True) -> bool:
+        """Every PG's primary (on the leader's map) runs here with the PG
+        active and (with `backfill_too`) nothing to backfill: the daemons'
+        own view of done."""
+        for pool, pg_num in DAEMON_PG_NUM.items():
+            for ps in range(pg_num):
+                placed = self.placed(pool, ps)
+                if placed is None or placed[3] not in self.osds:
+                    return False
+                pg = self.osds[placed[3]].pgs.get((pool, ps))
+                if pg is None or not pg.active or backfill_too and (
+                        pg.backfill_targets or pg.self_backfill):
+                    return False
+        return True
+
+    async def recovered(self, timeout: float) -> float:
+        """Waits until every PG is clean in the daemons' view and no push
+        was made for DAEMON_QUIET_POLLS polls; returns the seconds from the
+        call to the first of those polls."""
+        loop = asyncio.get_running_loop()
+        t0 = loop.time()
+        last, quiet, since = self.pushes(), 0, t0
+        while quiet < DAEMON_QUIET_POLLS:
+            if loop.time() - t0 > timeout:
+                raise AssertionError(f"recovery did not finish within {timeout} s")
+            await asyncio.sleep(0.2)
+            pushes = self.pushes()
+            if pushes != last or not self.pgs_clean():
+                last, quiet = pushes, 0
+                continue
+            if quiet == 0:
+                since = loop.time()
+            quiet += 1
+        return since - t0
+
+    def pushes(self) -> int:
+        return sum(o.perf.dump().get("recovery_pushes", 0) for o in self.osds.values())
+
+    def unfilled(self, want: dict) -> list[tuple[str, int, int]]:
+        """(object, position, OSD) of every live acting position that holds
+        no copy or shard of the object at its newest version."""
+        from ceph_tpu_torch.osd.daemon import pg_coll, shard_name
+        from ceph_tpu_torch.osd.osdmap import CRUSH_ITEM_NONE
+
+        some = next(iter(self.osds.values()))
+        out = []
+        for pool, name in want:
+            ps = some.object_pg(pool, name)
+            acting, _primary = some.acting_of(pool, ps)
+            held = {}
+            for pos, osd in enumerate(acting):
+                if osd == CRUSH_ITEM_NONE or osd not in self.osds:
+                    continue
+                obj = shard_name(name, pos if pool == EC_POOL else None)
+                store = self.osds[osd].store
+                if store.exists(pg_coll(pool, ps), obj):
+                    held[(pos, osd)] = store.getattrs(pg_coll(pool, ps), obj).get("ver")
+            newest = max(held.values(), default=None)
+            for pos, osd in enumerate(acting):
+                if osd != CRUSH_ITEM_NONE and osd in self.osds and \
+                        held.get((pos, osd), "absent") != newest:
+                    out.append((name, pos, osd))
+        return out
+
+    async def stop(self):
+        if self.rados is not None:
+            await self.rados.shutdown()
+        for osd in self.osds.values():
+            await osd.stop()
+        for m in self.mons:
+            await m.stop()
+
+
+def daemon_objects(seed: int) -> dict:
+    """{(pool, name): bytes} of phase 18's objects, 4 MiB each, from `seed`."""
+    rng = np.random.default_rng(seed)
+    return {(pool, f"d-{pool}-{i}"): rng.bytes(OBJECT_BYTES)
+            for pool, n in DAEMON_OBJECTS.items() for i in range(n)}
+
+
+async def daemon_gather(calls, concurrency: int) -> list[float]:
+    """Run the coroutine factories in `calls` `concurrency` at a time (a
+    worker each, as daemon_bench streams); returns each call's seconds."""
+    calls = list(calls)
+    seconds = [0.0] * len(calls)
+    nxt = iter(range(len(calls)))
+
+    async def worker():
+        for i in nxt:
+            t = time.perf_counter()
+            await calls[i]()
+            seconds[i] = time.perf_counter() - t
+
+    await asyncio.gather(*(worker() for _ in range(min(concurrency, len(calls)))))
+    return seconds
+
+
+class B1Watch:
+    """B1's launches, counted two ways (the wrapper's count and the OSDs'
+    EncodeService launches), the planar widths of every call the daemons'
+    codecs make, and the calls that raised: the daemon turns a decode that
+    raised into "unrecoverable this pass" (`osd/daemon.py:2409`), so a
+    failing launch would otherwise show only as a recovery that stalls."""
+
+    def __init__(self, gc, cluster: DaemonCluster):
+        self.gc, self.cluster = gc, cluster
+        self.widths: list[tuple[str, int, int]] = []
+        self.raised: list[str] = []
+        for osd in cluster.osds.values():
+            self.watch_osd(osd)
+
+    def watch_osd(self, osd) -> None:
+        codec = osd.codec(EC_POOL)
+        for kind in ("encode_words", "decode_words"):
+            self._watch(codec, kind)
+
+    def _watch(self, codec, kind: str) -> None:
+        fn = getattr(codec, kind)
+
+        def watched(*args):
+            words = args[-1]
+            self.widths.append((kind, int(words.shape[0]), int(words.shape[1])))
+            try:
+                return fn(*args)
+            except Exception as e:
+                self.raised.append(f"{kind} {tuple(words.shape)}: {e!r}")
+                raise
+
+        setattr(codec, kind, watched)
+
+    def service_launches(self) -> int:
+        return sum(o.encode_service.launches for o in self.cluster.osds.values())
+
+    def start(self) -> None:
+        self.gc.gf_matmul_packed.launches = 0
+        self._svc = self.service_launches()
+
+    def read(self) -> tuple[int, int]:
+        torch.cuda.synchronize()
+        return self.gc.gf_matmul_packed.launches, self.service_launches() - self._svc
+
+
+async def profiled_async(coro_fn) -> tuple[float, dict]:
+    """profiled() for a coroutine run on the running event loop."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        await asyncio.sleep(0.05)
+        t0 = time.perf_counter()
+        await coro_fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall, device_busy(prof)
+
+
+def span_split(cluster: DaemonCluster) -> dict[str, tuple[int, float]]:
+    """{span name: (count, total ms)} over every daemon's and the client's
+    flight ring (the spans the tracer kept since they were cleared)."""
+    out: dict[str, tuple[int, float]] = {}
+    tracers = [o.tracer for o in cluster.osds.values()] + [cluster.rados.objecter.tracer]
+    for tracer in tracers:
+        for span in tracer._flight:
+            # adopted copies of other daemons' spans are dicts: skipped, as
+            # their own tracer counts them
+            if isinstance(span, dict) or span.end is None:
+                continue
+            n, ms = out.get(span.name, (0, 0.0))
+            out[span.name] = (n + 1, ms + (span.end - span.start) * 1e3)
+    return out
+
+
+async def daemon_sequence(gc, cluster: DaemonCluster, objects: dict, smi: str) -> dict:
+    """Phase 18's drive on a started cluster: writes, partial overwrites,
+    reads, 2 OSDs killed, degraded reads, mark-out and recovery, reads
+    again. Returns the bytes each object must hold, the B1 counts per
+    window, the widths B1 was called at and the times."""
+    rados = cluster.rados
+    io = {pool: rados.io_ctx(pool) for pool in DAEMON_OBJECTS}
+    ec_keys = [k for k in objects if k[0] == EC_POOL]
+    rep_keys = [k for k in objects if k[0] == REP_POOL]
+    want = dict(objects)
+    watch = B1Watch(gc, cluster)
+    out = {"launches": {}, "times": {}}
+
+    def write(key, data=None):
+        return lambda: io[key[0]].write_full(key[1], objects[key] if data is None else data)
+
+    def read_check(key):
+        async def call():
+            if await io[key[0]].read(key[1]) != want[key]:
+                raise AssertionError(f"read {key} returned other bytes")
+        return call
+
+    # write window: 128 EC puts, 16 replicated, 8 partial overwrites, 16
+    # traced rewrites, 16 profiled rewrites
+    watch.start()
+    t = time.perf_counter()
+    lat = await daemon_gather([write(k) for k in ec_keys], DAEMON_CONCURRENCY)
+    ec_s = time.perf_counter() - t
+    t = time.perf_counter()
+    await daemon_gather([write(k) for k in rep_keys], DAEMON_CONCURRENCY)
+    rep_s = time.perf_counter() - t
+    rng = np.random.default_rng(SEED + 18)
+    partial0 = sum(o.perf.dump().get("op_w_partial", 0) for o in cluster.osds.values())
+    for key in ec_keys[:DAEMON_PARTIAL]:
+        off = int(rng.integers(0, OBJECT_BYTES - 8192))
+        patch = rng.bytes(4096)
+        await io[EC_POOL].write(key[1], patch, off)
+        want[key] = want[key][:off] + patch + want[key][off + 4096:]
+    partial = sum(o.perf.dump().get("op_w_partial", 0) for o in cluster.osds.values()) - partial0
+    if partial < 1:
+        raise AssertionError("no partial overwrite took the sub-stripe path")
+    window = ec_keys[DAEMON_PARTIAL:DAEMON_PARTIAL + DAEMON_WINDOW]
+    cluster.cfg.set("tracer_sample_rate", 0.0)
+    cluster.cfg.set("tracer_enabled", True)
+    tracers = [o.tracer for o in cluster.osds.values()] + [rados.objecter.tracer]
+    for tracer in tracers:
+        tracer._flight.clear()
+    t = time.perf_counter()
+    await daemon_gather([write(k) for k in window], DAEMON_WINDOW)
+    traced_s = time.perf_counter() - t
+    cluster.cfg.set("tracer_enabled", False)
+    spans = span_split(cluster)
+    wall, busy = await profiled_async(
+        lambda: daemon_gather([write(k) for k in window], DAEMON_WINDOW))
+    if not busy:  # as phase 16 does, once more, said aloud
+        print("  torch.profiler returned no device event for 16 writes; writing them again "
+              "under it", flush=True)
+        wall, busy = await profiled_async(
+            lambda: daemon_gather([write(k) for k in window], DAEMON_WINDOW))
+    out["launches"]["write"] = watch.read()
+    n_ec, n_rep = len(ec_keys), len(rep_keys)
+    out["times"]["write"] = {"gbps": n_ec * OBJECT_BYTES / ec_s / 1e9, "s": ec_s,
+                             "ms_per_object": ec_s / n_ec * 1e3,
+                             "latency_ms": float(np.mean(lat)) * 1e3}
+    print(f"  [{smi}] write of {n_ec} EC objects (4 MiB, isa k=8 m=3) at concurrency "
+          f"{DAEMON_CONCURRENCY}: {ec_s:.3f} s, {out['times']['write']['gbps']:.4f} GB/s, "
+          f"{ec_s / n_ec * 1e3:.3f} ms an object, mean op latency {np.mean(lat) * 1e3:.3f} ms "
+          f"(p50 {np.percentile(lat, 50) * 1e3:.3f}, max {max(lat) * 1e3:.3f}); {n_rep} "
+          f"replicated in {rep_s:.3f} s ({n_rep * OBJECT_BYTES / rep_s / 1e9:.4f} GB/s); "
+          f"{DAEMON_PARTIAL} partial overwrites, {partial} on the sub-stripe path", flush=True)
+    print(f"  [{smi}] {DAEMON_WINDOW} traced rewrites at concurrency {DAEMON_WINDOW}: "
+          f"{traced_s:.3f} s; spans (count, mean ms, ms per write): "
+          + "; ".join(f"{name} {n} {ms / n:.3f} {ms / DAEMON_WINDOW:.3f}"
+                      for name, (n, ms) in sorted(spans.items(), key=lambda kv: -kv[1][1])),
+          flush=True)
+    kernel = device_ms(busy, [B1_KERNEL])
+    print(f"  [{smi}] {DAEMON_WINDOW} rewrites under torch.profiler: {wall * 1e3:.3f} ms, "
+          f"device busy {device_ms(busy):.3f} ms, of it B1 {kernel:.3f} ms; idle share "
+          f"{1 - device_ms(busy) / (wall * 1e3):.5f}; device events: "
+          + ", ".join(f"{k} x{cnt} {ms:.3f} ms" for k, (cnt, ms) in sorted(busy.items())),
+          flush=True)
+
+    t = time.perf_counter()
+    await daemon_gather([read_check(k) for k in want], DAEMON_CONCURRENCY)
+    read_s = time.perf_counter() - t
+    out["times"]["read"] = {"gbps": len(want) * OBJECT_BYTES / read_s / 1e9, "s": read_s}
+    print(f"  [{smi}] read of all {len(want)} objects: {read_s:.3f} s, "
+          f"{out['times']['read']['gbps']:.4f} GB/s, every read exact", flush=True)
+
+    # degraded-read window: 2 OSDs stopped and marked down
+    for victim in DAEMON_VICTIMS:
+        await cluster.osds.pop(victim).stop()
+        await rados.mon_command("osd down", {"osd": victim})
+    await cluster.wait_until(lambda: cluster.down(DAEMON_VICTIMS), 60, "the victims marked down")
+    t = time.perf_counter()
+    await cluster.wait_until(lambda: cluster.pgs_clean(backfill_too=False), 600,
+                             "every PG active again")
+    repeer_s = time.perf_counter() - t
+    watch.start()
+    t = time.perf_counter()
+    await daemon_gather([read_check(k) for k in ec_keys], DAEMON_CONCURRENCY)
+    deg_s = time.perf_counter() - t
+    out["launches"]["degraded read"] = watch.read()
+    out["times"]["degraded read"] = {"gbps": len(ec_keys) * OBJECT_BYTES / deg_s / 1e9,
+                                     "s": deg_s}
+    print(f"  [{smi}] OSDs {list(DAEMON_VICTIMS)} stopped and marked down, every PG active "
+          f"again in {repeer_s:.3f} s; degraded read of "
+          f"{len(ec_keys)} EC objects: {deg_s:.3f} s, "
+          f"{out['times']['degraded read']['gbps']:.4f} GB/s, every read exact", flush=True)
+
+    # recovery window: the victims come back on empty stores (their disks
+    # replaced); the primaries rebuild every copy and shard they held
+    pushes0 = cluster.pushes()
+    watch.start()
+    t = time.perf_counter()
+    for victim in DAEMON_VICTIMS:
+        await cluster.start_osd(victim)
+        watch.watch_osd(cluster.osds[victim])
+    await cluster.wait_until(lambda: cluster.down(DAEMON_VICTIMS, down=False), 120,
+                             "the victims up again")
+    up_s = time.perf_counter() - t
+    rec_s = up_s + await cluster.recovered(DAEMON_RECOVERY_S)
+    out["launches"]["recovery"] = watch.read()
+    healed = cluster.pushes() - pushes0
+    unfilled = cluster.unfilled(want)
+    out["times"]["recovery"] = {"s": rec_s, "pushes": healed, "unfilled": len(unfilled)}
+    print(f"  [{smi}] OSDs {list(DAEMON_VICTIMS)} back on empty stores and up in {up_s:.3f} s; "
+          f"recovered in {rec_s:.3f} s from their restart (every PG clean, no push for "
+          f"{DAEMON_QUIET_POLLS} polls): {healed} objects and shards pushed; acting positions "
+          f"left without their current copy or shard: {len(unfilled)} {unfilled[:6]}",
+          flush=True)
+    t = time.perf_counter()
+    await daemon_gather([read_check(k) for k in want], DAEMON_CONCURRENCY)
+    print(f"  read of all {len(want)} objects after recovery: {time.perf_counter() - t:.3f} s, "
+          "every read exact", flush=True)
+    out["want"] = want
+    out["widths"] = watch.widths
+    out["raised"] = watch.raised
+    return out
+
+
+def check_daemon_stores(cluster: DaemonCluster, want: dict, factory) -> int:
+    """Every pool-1 shard on every surviving OSD, and its own position's
+    hinfo digest, equal what the isa codec on the CPU makes of the bytes
+    the object must hold. Returns the shards checked."""
+    from ceph_tpu_torch.common.crc import ceph_crc32c
+    from ceph_tpu_torch.osd.ecutil import SEED as HINFO_SEED
+
+    cpu = factory("isa", {k: v for k, v in DAEMON_EC_PROFILE.items() if k != "plugin"},
+                  device="cpu")
+    n = cpu.get_chunk_count()
+    stored: dict[str, list] = {}
+    for osd_id, osd in cluster.osds.items():
+        for coll in osd.store.list_collections():
+            if not coll.startswith(f"pg_{EC_POOL}_"):
+                continue
+            for obj in osd.store.list_objects(coll):
+                base, sep, pos = obj.rpartition(".s")
+                if sep and pos.isdigit():
+                    stored.setdefault(base, []).append((osd_id, coll, obj, int(pos)))
+    checked = 0
+    for (pool, name), data in want.items():
+        if pool != EC_POOL:
+            continue
+        if name not in stored:
+            raise AssertionError(f"no OSD holds a shard of {name}")
+        chunks = cpu.encode(range(n), data)
+        for osd_id, coll, obj, pos in stored[name]:
+            store = cluster.osds[osd_id].store
+            hinfo = store.getattrs(coll, obj)["hinfo"]
+            if store.read(coll, obj) != chunks[pos]:
+                raise AssertionError(f"osd.{osd_id} {obj} differs from the CPU isa codec's chunk")
+            if (hinfo.total_chunk_size != len(chunks[pos]) or
+                    hinfo.cumulative_shard_hashes[pos] != ceph_crc32c(HINFO_SEED, chunks[pos])):
+                raise AssertionError(f"osd.{osd_id} {obj}: hinfo differs from the chunk's")
+            checked += 1
+    return checked
+
+
+def phase_daemon_path(gc, factory, smi: str) -> dict:
+    """Phase 18: the port's monitors, OSD daemons and client in this process
+    on the card, driven through Rados; B1's launches counted in the write,
+    degraded-read and recovery windows. Returns B1's launches and times."""
+    # warm B1 at the pool's shape before any daemon starts: the daemons share
+    # this thread's event loop, and a first use inside an OSD would stall
+    # its heartbeats
+    codec = factory("isa", {k: v for k, v in DAEMON_EC_PROFILE.items() if k != "plugin"})
+    words = torch.zeros((K, OBJECT_BYTES // K // 4), dtype=torch.int32, device="cuda")
+    codec.encode_words(words)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    objects = daemon_objects(SEED + 18)
+    print(f"  B1 warm at ({K}, {OBJECT_BYTES // K // 4}) int32; {len(objects)} objects of "
+          f"{OBJECT_BYTES} B made in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    async def drive():
+        cluster = DaemonCluster("cuda")
+        t = time.perf_counter()
+        await cluster.start()
+        print(f"  3 mons, {DAEMON_OSDS} OSDs (a host each, straw2, jewel) and a client up in "
+              f"{time.perf_counter() - t:.2f} s; pool {EC_POOL}: isa k={K} m={M} cauchy pg_num "
+              f"{DAEMON_PG_NUM[EC_POOL]}, pool {REP_POOL}: replicated size 3 pg_num "
+              f"{DAEMON_PG_NUM[REP_POOL]}", flush=True)
+        try:
+            out = await daemon_sequence(gc, cluster, objects, smi)
+        finally:
+            await cluster.stop()
+        return cluster, out
+
+    cluster, out = asyncio.run(asyncio.wait_for(drive(), 900))
+    print(f"  B1 launches (wrapper count, EncodeService launches) by window: {out['launches']}; "
+          f"B1 calls that raised: {len(out['raised'])} {out['raised'][:4]}", flush=True)
+    if out["raised"]:
+        raise AssertionError(f"B1 calls raised on the daemon path: {out['raised'][:4]}")
+    for window, counts in out["launches"].items():
+        if min(counts) < 1:
+            raise AssertionError(f"B1 did not launch in the {window} window: {counts}")
+    t = time.perf_counter()
+    checked = check_daemon_stores(cluster, out["want"], factory)
+    print(f"  {checked} pool-{EC_POOL} shards on the {len(cluster.osds)} OSDs equal the "
+          f"CPU isa codec's chunks, each with its hinfo digest ({time.perf_counter() - t:.2f} s)",
+          flush=True)
+    widths: dict[tuple[str, int, int], int] = {}
+    for call in out["widths"]:
+        widths[call] = widths.get(call, 0) + 1
+    print("  B1 calls by (kind, rows, int32 words a row): "
+          + ", ".join(f"{k} x{n}" for k, n in sorted(widths.items(), key=lambda kv: -kv[1])),
+          flush=True)
+    kind, rows, width = max(widths, key=lambda key: (widths[key], key[2]))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    words = random_words(rows, width, gen)
+    enc = codec._encode
+    kt = kernel_times(lambda: gc.gf_matmul_packed(enc.packed_t, words, tables=enc.tables_t),
+                      TIMED_LAUNCHES)
+    moved = (K + M) * width * 4
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    print(f"  [{smi}] B1 at the most common width ({rows} x {width} words: "
+          f"{widths[(kind, rows, width)]} calls of {kind}), timed as the pool's encode "
+          f"({K} -> {M} rows): {times_text(kt)}, bound {bound_ms:.4f} ms "
+          f"({moved} B at 3.35 TB/s), share {bound_ms / kt['ms']:.3f}", flush=True)
+    del cluster
+    return {"launches": sum(c[0] for c in out["launches"].values()), "times": out["times"]}
+
+
+def phase_daemon_bench(smi: str) -> None:
+    """Phase 18b: `python -m ceph_tpu_torch.tools.daemon_bench` once, as a
+    user runs it (a process of its own), at the reference's README
+    configuration on the card; its JSON line is printed as it gives it."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    argv = [sys.executable, "-m", "ceph_tpu_torch.tools.daemon_bench", *DAEMON_BENCH_ARGV]
+    t = time.perf_counter()
+    proc = subprocess.run(argv, cwd=here, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"daemon_bench exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    line = json.loads(proc.stdout.splitlines()[-1])
+    if line["launches"] < 1 or line["objects"] < 1:
+        raise AssertionError(f"daemon_bench launched nothing: {line}")
+    print(f"  [{smi}] daemon_bench {' '.join(DAEMON_BENCH_ARGV)} in "
+          f"{time.perf_counter() - t:.2f} s (its process included):", flush=True)
+    print(f"  {json.dumps(line)}", flush=True)
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; a CUDA card is "
@@ -2411,12 +2996,20 @@ def main() -> int:
     print("phase 17: the native plugin and the EC tools", flush=True)
     phase_native_and_tools(factory, smi)
 
+    print("phase 18: the live daemon path (monitors, OSD daemons, client) on the card",
+          flush=True)
+    bp.gf_matmul_bitplane.launches = 0
+    daemon = phase_daemon_path(gc, factory, smi)
+    daemon_b3 = bp.gf_matmul_bitplane.launches
+    print(f"  gf_matmul_bitplane launches on the daemon path: {daemon_b3}", flush=True)
+    phase_daemon_bench(smi)
+
     kernels = [{
         "name": "gf_matmul_packed",
         "route": "cuda",
         "source": "ceph_tpu_torch/csrc/gf_matmul.cu",
         "replaces": "ceph_tpu/ops/gf_pallas.py:141",
-        "launches": launches,
+        "launches": launches + daemon["launches"],
         "max_abs_err": max_err,
         "ms": times["ms"],
         "held_ms": times["held_ms"],
@@ -2467,8 +3060,8 @@ def main() -> int:
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": family_launches[name] + (rados["launches"] if name == "gf_matmul_bitplane"
-                                                 else 0),
+            "launches": family_launches[name] + (rados["launches"] + daemon_b3
+                                                 if name == "gf_matmul_bitplane" else 0),
             "max_abs_err": family_err[name],
             "ms": family_times[name]["ms"],
             "held_ms": family_times[name]["held_ms"],

@@ -36,3 +36,69 @@ def test_cuda_kernel_matches_plain_on_card():
             torch.cuda.synchronize()
             assert torch.equal(got, gc.gf_matmul_packed_plain(packed, words))
     assert gc.gf_matmul_packed.launches == before + 4
+
+
+@pytest.mark.gpu
+def test_live_k2m2_round_trip_on_card():
+    """Monitors, OSD daemons and a client in one process with every codec on
+    the card: EC writes, reads and degraded reads of a k2m2 pool launch the
+    GF kernel through each primary's EncodeService."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on one)")
+    import asyncio
+    import contextlib
+
+    from ceph_tpu_torch.common.config import Config
+    from ceph_tpu_torch.mon import MonMap, Monitor
+    from ceph_tpu_torch.msg.messenger import next_dispatch_event
+    from ceph_tpu_torch.osd.daemon import OSDService
+    from ceph_tpu_torch.rados.client import Rados
+    from ceph_tpu_torch.vstart import initial_osdmap
+
+    async def main():
+        cfg = Config()
+        for key, value in (("mon_lease", 0.1), ("mon_election_timeout", 0.4),
+                           ("osd_heartbeat_interval", 0.15), ("osd_heartbeat_grace", 2)):
+            cfg.set(key, value)
+        monmap = MonMap(addrs=[("127.0.0.1", 0)] * 3)
+        mons = [Monitor(r, monmap, initial_osdmap(6), config=cfg) for r in range(3)]
+        for m in mons:
+            await m.bind()
+        for m in mons:
+            m.go()
+        osds = {}
+        for i in range(6):
+            osds[i] = OSDService(i, monmap, config=cfg)
+            await osds[i].start()
+        rados = Rados("client.gpu", monmap, config=cfg)
+        await rados.connect()
+        await rados.mon_command("osd erasure-code-profile set", {
+            "name": "k2m2", "profile": {"plugin": "tpu", "k": "2", "m": "2"}})
+        await rados.mon_command("osd pool create", {
+            "pool_id": 2, "crush_rule": 0, "erasure_code_profile": "k2m2", "pg_num": 8})
+        io = rados.io_ctx(2)
+        rng = np.random.default_rng(12)
+        objects = {f"g{i}": rng.integers(0, 256, 65536 + 97 * i, np.uint8).tobytes()
+                   for i in range(8)}
+        writes = gc.gf_matmul_packed.launches
+        for name, data in objects.items():
+            await io.write_full(name, data)
+        writes = gc.gf_matmul_packed.launches - writes
+        for name, data in objects.items():
+            assert await io.read(name) == data
+        await osds.pop(0).stop()
+        leader = next(m for m in mons if m.is_leader)
+        while not leader.osdmap.is_down(0):
+            with contextlib.suppress(asyncio.TimeoutError):
+                await asyncio.wait_for(next_dispatch_event(), 0.25)
+        for name, data in objects.items():
+            assert await io.read(name) == data
+        assert all(o.encode_service.device.type == "cuda" for o in osds.values())
+        await rados.shutdown()
+        for o in osds.values():
+            await o.stop()
+        for m in mons:
+            await m.stop()
+        return writes
+
+    assert asyncio.run(asyncio.wait_for(main(), 120)) > 0

@@ -46,7 +46,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "tools/crushtool.py", "tools/crush_bench.py", "ec/bitmatrix.py",
                  "ec/shec.py", "ec/lrc.py", "ec/clay.py", "ops/gf_bitplane.py",
                  "ops/gf_cuda.py", "rados/cluster.py", "ec/native.py",
-                 "native/build.py", "common/crc.py"):
+                 "native/build.py", "common/crc.py", "osd/daemon.py", "mon/monitor.py",
+                 "rados/client.py", "msg/messenger.py", "lint/racecheck.py",
+                 "tools/daemon_bench.py", "vstart.py"):
         assert os.path.join(REPO, "ceph_tpu_torch", *part.split("/")) in files
     bad = [
         (os.path.relpath(path, REPO), mod)
@@ -121,6 +123,27 @@ def test_default_device_entry_points_raise_without_a_card(tmp_path):
         factory("native", {"k": "4", "m": "2"})
     with pytest.raises(RuntimeError, match="cuda"):
         ec_non_regression.main(["--check"])
+
+    from ceph_tpu_torch.mon import MonMap, Monitor
+    from ceph_tpu_torch.osd.daemon import OSDService
+    from ceph_tpu_torch.rados.client import Rados
+    from ceph_tpu_torch.tools import daemon_bench
+
+    monmap = MonMap(addrs=[("127.0.0.1", 0)])
+    with pytest.raises(RuntimeError, match="cuda"):
+        OSDService(0, monmap)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Monitor(0, monmap, osdmap)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Rados("client.admin", monmap)
+    with pytest.raises(RuntimeError, match="cuda"):
+        daemon_bench.run(["--objects", "4"])
+    assert OSDService(0, monmap, device="cpu").device.type == "cpu"
+    assert Monitor(0, monmap, osdmap, device="cpu").device.type == "cpu"
+    assert Rados("client.admin", monmap, device="cpu").objecter.device.type == "cpu"
+    for flag in ("--mgr", "--recovery", "--multiprocess", "--chaos=1"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            daemon_bench.run([flag, "--device", "cpu"])
 
 
 def test_explicit_cpu_and_unknown_devices():
