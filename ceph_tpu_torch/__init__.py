@@ -27,11 +27,15 @@ Subpackages ported so far:
   native   — C sources built into _build/ at first use: the dlopened
              erasure-code plugin (plugin=native, a host codec), crc32c and
              the CPU EC baseline
+  parallel — the device mesh (Mesh, MeshArray) and the sharded GF(2^8)
+             matmul: one launch of the byte-layout kernel per mesh slot
+  ckpt     — the checkpoint store over RADOS (manifests byte-identical to
+             ceph_tpu's; restore onto a device or a mesh)
   common   — config, perf counters, logs, tracer, admin hub, crc32c, the
              KV store, op queues, watchdog, wire faults, compressors
   tools    — ec_bench, the ceph_erasure_code_benchmark drop-in; crushtool
              and crush_bench; ec_non_regression and cpu_ec_baseline;
-             daemon_bench (in-process)
+             daemon_bench (in-process); ckpt_tool
   vstart   — the genesis OSDMap and loopback port picking
 
 Device rule: entry points run on `cuda` unless the caller passes

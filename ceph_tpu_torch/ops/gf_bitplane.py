@@ -127,16 +127,20 @@ def gf_matmul_bitplane_plain(bitmat: torch.Tensor, data: torch.Tensor) -> torch.
 
 
 def gf_matmul_bitplane(
-    bitmat: torch.Tensor, data: torch.Tensor, *, tables: torch.Tensor
+    bitmat: torch.Tensor, data: torch.Tensor, *, tables: torch.Tensor,
+    stream: torch.cuda.Stream | None = None,
 ) -> torch.Tensor:
     """Batched GF(2^8) matmul: (8r, 8k) bit-matrix x (B, k, L) bytes -> (B, r, L).
 
     A CPU `data` runs the plain version and ignores `tables`. A CUDA `data`
-    launches the kernel on the current stream with `tables`, bitmat's
-    (r, k, 32) uint8 `gf_cuda.nibble_tables` on the same device (the
-    codecs' `CodingTables.tables_t`); `data` may have any batch and row
-    strides, its last axis contiguous. It raises on anything the kernel does not take. Each
-    launch adds one to `gf_matmul_bitplane.launches`.
+    launches the kernel with `tables`, bitmat's (r, k, 32) uint8
+    `gf_cuda.nibble_tables` on the same device (the codecs'
+    `CodingTables.tables_t`); `data` may have any batch and row strides, its
+    last axis contiguous. The launch goes on `stream` (default: the current
+    stream); the output is allocated on the current stream, so a caller
+    that passes another stream orders it after the current one before the
+    call and joins it after. It raises on anything the kernel does not
+    take. Each launch adds one to `gf_matmul_bitplane.launches`.
     """
     r, k = _check_matmul(bitmat, data)
     if data.device.type == "cpu":
@@ -161,10 +165,11 @@ def gf_matmul_bitplane(
         return out
     lib = gc._lib()
     with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream(data.device).cuda_stream
+        handle = (stream if stream is not None
+                  else torch.cuda.current_stream(data.device)).cuda_stream
         err = lib.gf_matmul_bytes_launch(
             tables.data_ptr(), data.data_ptr(), out.data_ptr(), k, r, batch,
-            length, in_sb, in_sk, stream)
+            length, in_sb, in_sk, handle)
     if err != 0:
         msg = lib.gf_cuda_error_string(err).decode()
         raise RuntimeError(f"gf_matmul_bitplane launch failed: CUDA error {err} ({msg})")

@@ -18,9 +18,16 @@ Paths, chosen per batch by the codec's `device`:
     The flush runs on the event-loop thread; the device-to-host copy waits
     for the kernel, so results are complete before any future resolves.
   * cpu — the exact table-driven numpy path (`gf_region_matmul`).
+  * mesh — a planar batch of at least `mesh_min_bytes` columns when the
+    service has a device mesh (`parallel.sharding`): the width, zero-padded
+    to a multiple of the mesh's slots, folds onto the (stripe, byte) mesh,
+    and every slot encodes or decodes its block with one B3 launch on its
+    device and stream (B8); the padding is cut off again. The mesh is the
+    `mesh=` argument, else the largest power-of-2 set of the visible cards
+    when there are several of them; on one card there is none, and the
+    cuda path above serves every batch.
 The service's own `device` (default cuda) picks no path: a planar codec on
 another kind of device is refused when its op is enqueued.
-The reference package's multi-device mesh path is not ported yet.
 
 Codecs without the planar API fall back to their per-object paths.
 """
@@ -50,6 +57,21 @@ def _bucket_pad(words: np.ndarray) -> tuple[np.ndarray, int]:
     padded = np.zeros((*words.shape[:-1], bucket), dtype=words.dtype)
     padded[..., :w] = words
     return padded, w
+
+
+def _mesh_pad(planes: np.ndarray, slots: int) -> tuple[np.ndarray, int]:
+    """Zero-pad the planar width to a multiple of the mesh's slots, so it
+    folds evenly onto the mesh (zero columns code to zero; cut off after)."""
+    w = planes.shape[-1]
+    padded_w = -(-w // slots) * slots
+    if padded_w == w:
+        return planes, w
+    padded = np.zeros((*planes.shape[:-1], padded_w), dtype=planes.dtype)
+    padded[..., :w] = planes
+    return padded, w
+
+
+_UNSET = object()
 
 
 def pack_objects(k: int, items) -> np.ndarray:
@@ -87,8 +109,8 @@ def pack_survivors(codec, present, items) -> np.ndarray:
 
 class EncodeService:
     def __init__(
-        self, window: float = 0.002, max_batch: int = 128, tracer=None,
-        device=None,
+        self, window: float = 0.002, max_batch: int = 128,
+        mesh_min_bytes: int = 8192, tracer=None, device=None, mesh=None,
     ):
         #: optional distributed tracer: traced ops get an encode_wait
         #: span (enqueue -> result) and each launch an encode_batch span
@@ -115,6 +137,33 @@ class EncodeService:
         #: launches / objects served — the coalescing evidence
         self.launches = 0
         self.objects = 0
+        #: planar widths >= this dispatch through the device mesh: the
+        #: batch's byte axis folds onto the (stripe, byte) mesh with no
+        #: communication; below it one device serves the batch
+        self.mesh_min_bytes = mesh_min_bytes
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(
+                f"a mesh of {mesh.device_type} devices given to an "
+                f"EncodeService on {self.device}"
+            )
+        self._mesh_cache = _UNSET if mesh is None else mesh
+        #: launches that went through the sharded mesh path
+        self.mesh_launches = 0
+
+    def _mesh(self, width_bytes: int):
+        """The device mesh for a planar launch of `width_bytes`, or None
+        (one device, or a width too small to amortize the dispatch)."""
+        if width_bytes < self.mesh_min_bytes:
+            return None
+        if self._mesh_cache is _UNSET:
+            n = torch.cuda.device_count() if self.device.type == "cuda" else 1
+            self._mesh_cache = None
+            if n > 1:
+                from ceph_tpu_torch.parallel import sharding
+
+                # largest power-of-2 subset, as the reference takes
+                self._mesh_cache = sharding.ec_mesh(1 << (n.bit_length() - 1))
+        return self._mesh_cache
 
     # -- the device round trip -------------------------------------------------
 
@@ -187,6 +236,14 @@ class EncodeService:
 
     def _encode_planes(self, codec, planes: np.ndarray) -> np.ndarray:
         """(k, W) uint8 data planes -> (m, W) uint8 parity planes."""
+        mesh = self._mesh(planes.shape[1])
+        if mesh is not None:
+            from ceph_tpu_torch.parallel import sharding
+
+            padded, width = _mesh_pad(planes, mesh.size)
+            parity = sharding.mesh_encode_planar(codec, padded, mesh)[:, :width]
+            self.mesh_launches += 1
+            return parity
         if codec.device.type == "cuda":
             return self._on_device(planes, codec.device, codec.encode_words)
         # off-device: exact table-driven numpy planar path
@@ -199,7 +256,8 @@ class EncodeService:
             k, n = codec.k, codec.get_chunk_count()
             # pack every object's chunk j end to end into planar row j
             planes = pack_objects(k, ((data, bs) for data, bs, _fut in q))
-            self._note_launch(sp, codec.device.type, k, n, planes.shape[1], len(q))
+            path = "mesh" if self._mesh(planes.shape[1]) is not None else codec.device.type
+            self._note_launch(sp, path, k, n, planes.shape[1], len(q))
             parity = self._encode_planes(codec, planes)
             self.launches += 1
             self.objects += len(q)
@@ -307,6 +365,15 @@ class EncodeService:
 
     def _decode_planes(self, codec, present, targets, planes) -> np.ndarray:
         """(k, W) uint8 survivor planes -> (len(targets), W) rebuilt planes."""
+        mesh = self._mesh(planes.shape[1])
+        if mesh is not None:
+            from ceph_tpu_torch.parallel import sharding
+
+            padded, width = _mesh_pad(planes, mesh.size)
+            rebuilt = sharding.mesh_decode_planar(
+                codec, list(present), list(targets), padded, mesh)[:, :width]
+            self.mesh_launches += 1
+            return rebuilt
         if codec.device.type == "cuda":
             return self._on_device(
                 planes, codec.device,

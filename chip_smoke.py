@@ -25,7 +25,13 @@ stores), degraded gets after OSDs die, recovery onto their new homes and deep
 scrub. Then the live daemon path as a cluster's clients meet it: three
 monitors, twelve OSD daemons and a Rados client in this process over
 loopback, EC writes encoded by each primary's EncodeService, degraded reads
-and recovery decoding through it, all over the GF(2^8) kernel. Phases:
+and recovery decoding through it, all over the GF(2^8) kernel, and the
+checkpoint store on those daemons: GPT-2 small's parameters saved,
+saved again incrementally, verified, collected and restored onto the card
+and onto device meshes. Then the device mesh as a multi-device OSD meets it:
+the sharded GF(2^8) matmul (B8, one launch of the byte-layout kernel per mesh
+slot) through sharded_encode/decode, the planar entry points and
+EncodeService's mesh path. Phases:
 
   1. the card: name, count, and nvidia-smi's name and power limit;
   2. build every kernel under ceph_tpu_torch/csrc with nvcc (ptxas report);
@@ -149,11 +155,34 @@ and recovery decoding through it, all over the GF(2^8) kernel. Phases:
       recovery left without their shard counted; times
       (write and read GB/s, ms an object, the put's tracer spans, the idle
       share, B1's widths and its time at the most common one beside its
-      bound, degraded-read GB/s, recovery seconds); then the port's
-      daemon_bench at the reference's README configuration;
-  19. no process this script started is left (nvcc, nvidia-smi and the
-      worker processes are all waited for), then a `kernels` JSON line;
-  20. the `ok` JSON line, last.
+      bound, degraded-read GB/s, recovery seconds); then the checkpoint
+      window on the same cluster: GPT-2 small's parameters (published
+      widths, 498 MB of float32 made on the card from the seed; cut from the
+      training state, whose Adam moments would triple it, to keep the run's
+      time; the embeddings and MLP weights laid out on a 1x1 mesh's `stripe`
+      axis) saved into pool 1 with B1 counted, saved
+      again with save_async after one layer changed (dedup ratio, stall
+      against persist time, idle share under torch.profiler), verified,
+      collected by `ckpt_tool gc --keep-last 1` in its own process (the old
+      save's objects gone but those the new one references), then restored
+      onto the card, onto the 1x1 mesh and onto a 2x2 mesh of four slots on
+      the card (reshard-on-load: the laid-out tensors in 2 slabs), every leaf
+      equal to its source; then the port's daemon_bench at the reference's
+      README configuration;
+  19. the device mesh (B8), the byte-layout matmul's count zeroed before
+      and read after: sharded_encode and sharded_decode (erasures {0,1,2})
+      of 64 x (8, 512 KiB) and mesh_encode_planar / mesh_decode_planar on the
+      burst's (8, 32 MiB) planes, on the 1x1 mesh and on the 2x2 mesh of four
+      slots on the card (a stream each), each output equal to one launch of
+      the byte-layout kernel over the whole batch and to its plain version;
+      EncodeService(mesh=2x2) on phase 4's burst, encode and decode through
+      the mesh path, its chunks equal phase 4's; times (CUDA events): B8's
+      call on each mesh beside one launch over the whole batch, the plain
+      version and the bytes bound;
+  20. no process this script started is left (nvcc, nvidia-smi, the
+      worker processes and ckpt_tool are all waited for), then a `kernels`
+      JSON line;
+  21. the `ok` JSON line, last.
 
 Each kernel is timed three ways: `ms`, its call time (CUDA events around
 back-to-back calls of its wrapper, as every share and comparison uses);
@@ -422,7 +451,7 @@ def phase_main_path(codec, EncodeService, ec_bench) -> tuple[list[bytes], dict]:
         print(f"  ec_bench {' '.join(bench + workload)}:", flush=True)
         if ec_bench.main(bench + workload) != 0:
             raise AssertionError("ec_bench failed")
-    return objs, encoded[0]
+    return objs, encoded
 
 
 def check_outputs(codec, gf, objs, chunks0) -> None:
@@ -2734,6 +2763,8 @@ async def daemon_sequence(gc, cluster: DaemonCluster, objects: dict, smi: str) -
     await daemon_gather([read_check(k) for k in want], DAEMON_CONCURRENCY)
     print(f"  read of all {len(want)} objects after recovery: {time.perf_counter() - t:.3f} s, "
           "every read exact", flush=True)
+    out["ckpt"] = await ckpt_window(cluster, watch, smi)
+    out["launches"]["ckpt save"] = out["ckpt"]["launches"]
     out["want"] = want
     out["widths"] = watch.widths
     out["raised"] = watch.raised
@@ -2776,6 +2807,214 @@ def check_daemon_stores(cluster: DaemonCluster, want: dict, factory) -> int:
                 raise AssertionError(f"osd.{osd_id} {obj}: hinfo differs from the chunk's")
             checked += 1
     return checked
+
+
+# -- phase 18's checkpoint window -------------------------------------------------
+
+#: GPT-2 small at its published widths (OpenAI's GPT-2 release; Hugging
+#: Face `gpt2` config): n_layer 12, n_embd 768, n_head 12, vocab 50257,
+#: n_positions 1024
+GPT2 = {"n_layer": 12, "n_embd": 768, "n_head": 12, "vocab": 50257, "n_positions": 1024}
+GPT2_PARAMS = 124_439_808
+CKPT_NAME = "gpt2"
+#: chunk objects of 4 MiB (phase 18's object size, a multiple of the pool's
+#: k x stripe_unit alignment) written 32 at a time (its write concurrency)
+CKPT_CONFIG = {"ckpt_chunk_target_bytes": 4 << 20, "ckpt_max_inflight": 32}
+#: the layer whose tensors change before the second, incremental save
+CKPT_CHANGED_LAYER = 5
+#: tensors laid out on `stripe` (the reshard-on-load case): the embeddings
+#: and the MLP weights
+CKPT_SHARDED = ("wte", "wpe", "c_fc.weight", "mlp.c_proj.weight")
+
+
+def gpt2_shapes() -> dict[str, tuple[int, ...]]:
+    """{dotted name: shape} of GPT-2 small's parameters (Conv1D weights as
+    Hugging Face stores them, lm_head tied to wte)."""
+    e, v, p = GPT2["n_embd"], GPT2["vocab"], GPT2["n_positions"]
+    shapes = {"wte": (v, e), "wpe": (p, e)}
+    for i in range(GPT2["n_layer"]):
+        for name, shape in (("ln_1.weight", (e,)), ("ln_1.bias", (e,)),
+                            ("attn.c_attn.weight", (e, 3 * e)), ("attn.c_attn.bias", (3 * e,)),
+                            ("attn.c_proj.weight", (e, e)), ("attn.c_proj.bias", (e,)),
+                            ("ln_2.weight", (e,)), ("ln_2.bias", (e,)),
+                            ("mlp.c_fc.weight", (e, 4 * e)), ("mlp.c_fc.bias", (4 * e,)),
+                            ("mlp.c_proj.weight", (4 * e, e)), ("mlp.c_proj.bias", (e,))):
+            shapes[f"h.{i}.{name}"] = shape
+    shapes["ln_f.weight"] = shapes["ln_f.bias"] = (e,)
+    return shapes
+
+
+def gpt2_state(sh, mesh, gen: torch.Generator, only: str = "") -> dict:
+    """GPT-2 small's parameters, float32 on the card from `gen`: {"params":
+    {dotted name: tensor}}; the CKPT_SHARDED tensors are MeshArrays on
+    `mesh` with spec ("stripe", None). `only` keeps the names that start
+    with it. Cut from the full training state: Adam's two moments would
+    triple the 498 MB (1.49 GB), and with them the window took 155 s on the
+    H100, which would put the smoke more than 120 s past its earlier time."""
+    shapes = {n: s for n, s in gpt2_shapes().items() if n.startswith(only)}
+
+    def leaf(name):
+        t = torch.randn(shapes[name], generator=gen, device="cuda") * 0.02
+        if name.endswith(CKPT_SHARDED):
+            return sh.place(t, ("stripe", None), mesh)
+        return t
+
+    return {"params": {n: leaf(n) for n in shapes}}
+
+
+def leaves(tree, path=()):
+    """(path, leaf) pairs of a nested dict."""
+    for key in sorted(tree):
+        if isinstance(tree[key], dict):
+            yield from leaves(tree[key], path + (key,))
+        else:
+            yield path + (key,), tree[key]
+
+
+def as_full(leaf) -> torch.Tensor:
+    return leaf.full("cuda") if hasattr(leaf, "slots") else leaf
+
+
+def check_restored(label: str, got: dict, want: dict, sharded_slabs: int | None) -> None:
+    """Every restored leaf equal to its source (each slot to its slab of it);
+    with `sharded_slabs`, each CKPT_SHARDED leaf is laid out in that many
+    distinct slabs."""
+    got_leaves = dict(leaves(got))
+    if set(got_leaves) != {p for p, _ in leaves(want)}:
+        raise AssertionError(f"{label}: the restored tree has other leaves")
+    for path, src in leaves(want):
+        full = as_full(src)
+        out = got_leaves[path]
+        if sharded_slabs is None:
+            if not torch.equal(out, full):
+                raise AssertionError(f"{label}: {'/'.join(path)} differs")
+            continue
+        for idx, block in out.slots:
+            if not torch.equal(block, full[idx]):
+                raise AssertionError(f"{label}: {'/'.join(path)} slot {idx} differs")
+        if path[-1].endswith(CKPT_SHARDED):
+            slabs = {tuple(sl.indices(n) for sl, n in zip(idx, out.shape)) for idx, _b in out.slots}
+            if len(slabs) != sharded_slabs:
+                raise AssertionError(f"{label}: {'/'.join(path)} in {len(slabs)} slabs")
+
+
+async def ckpt_tool(cluster, *argv) -> dict:
+    """`python -m ceph_tpu_torch.tools.ckpt_tool` as an operator runs it: a
+    process of its own, over TCP to this cluster's monitors."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    hosts = ",".join(f"{h}:{p}" for h, p in cluster.monmap.addrs)
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, "-m", "ceph_tpu_torch.tools.ckpt_tool", "--mon-host", hosts,
+        "--pool", str(EC_POOL), "--device", "cuda", *argv, cwd=here,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    out, err = await asyncio.wait_for(proc.communicate(), 300)
+    if proc.returncode != 0:
+        raise AssertionError(f"ckpt_tool {' '.join(argv)} exited {proc.returncode}:\n"
+                             f"{out.decode()[-2000:]}{err.decode()[-2000:]}")
+    return json.loads(out.decode())
+
+
+async def ckpt_window(cluster: DaemonCluster, watch, smi: str) -> dict:
+    """Phase 18's checkpoint window on the live cluster: GPT-2 small's
+    parameters saved into pool 1, saved again in the background after
+    one layer changed (incremental), verified, collected by ckpt_tool gc
+    --keep-last 1, then restored whole onto the card and onto the 1x1 and
+    2x2 meshes (reshard-on-load); B1 counted over the first save."""
+    from ceph_tpu_torch.ckpt import CkptStore, layout
+    from ceph_tpu_torch.ckpt.gc import list_objects
+    from ceph_tpu_torch.parallel import sharding as sh
+
+    for key, value in CKPT_CONFIG.items():
+        cluster.cfg.set(key, value)
+    io = cluster.rados.io_ctx(EC_POOL)
+    store = CkptStore(io, CKPT_NAME)
+    mesh1, mesh4 = (sh.ec_mesh(devices=devs) for _l, devs in MESHES)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 180)
+    t = time.perf_counter()
+    tree = gpt2_state(sh, mesh1, gen)
+    torch.cuda.synchronize()
+    records = layout.flatten_tree(tree)
+    nbytes = sum(4 * int(np.prod(r["shape"])) for r in records)
+    if nbytes != 4 * GPT2_PARAMS or {r["dtype"] for r in records} != {"<f4"}:
+        raise AssertionError(f"the GPT-2 small state holds {nbytes} B")
+    chunk = layout.chunk_bytes(CKPT_CONFIG["ckpt_chunk_target_bytes"],
+                               layout.pool_alignment(cluster.rados.objecter.osdmap, EC_POOL))
+    print(f"  GPT-2 small {GPT2} parameters: {len(records)} "
+          f"float32 tensors, {nbytes} B, made on the card in {time.perf_counter() - t:.2f} s; "
+          f"chunk objects of {chunk} B", flush=True)
+    out = {"bytes": nbytes}
+
+    watch.start()
+    t = time.perf_counter()
+    await store.save(tree, save_id=f"{CKPT_NAME}-0")
+    save_s = time.perf_counter() - t
+    out["launches"] = watch.read()
+    if min(out["launches"]) < 1:
+        raise AssertionError(f"B1 did not launch in the save window: {out['launches']}")
+    out["save_gbps"] = nbytes / save_s / 1e9
+    print(f"  [{smi}] save {CKPT_NAME}-0: {save_s:.3f} s, {out['save_gbps']:.4f} GB/s, "
+          f"{store.perf.dump()['save_chunks']} chunk objects; B1 launches (wrapper count, "
+          f"EncodeService launches) {out['launches']}", flush=True)
+
+    tree["params"].update(gpt2_state(sh, mesh1, gen, only=f"h.{CKPT_CHANGED_LAYER}.")["params"])
+    pending = []
+
+    async def background_save():
+        pending.append(await store.save_async(tree, save_id=f"{CKPT_NAME}-1"))
+        await pending[0].wait()
+
+    wall, busy = await profiled_async(background_save)
+    ps = pending[0]
+    manifest = await store.reader().read_manifest(f"{CKPT_NAME}-1")
+    dedup = layout.manifest_dedup(manifest)
+    out.update(stall_s=ps.blocking_s, wall_s=ps.wall_s, dedup=dedup["dedup_ratio"],
+               idle=1 - device_ms(busy) / (wall * 1e3))
+    print(f"  [{smi}] save_async {CKPT_NAME}-1 after layer {CKPT_CHANGED_LAYER} changed: stall "
+          f"{ps.blocking_s:.3f} s (the snapshot to the host), persist {ps.wall_s:.3f} s, "
+          f"{dedup['chunks_referenced']} of {dedup['chunks']} chunks referenced from "
+          f"{CKPT_NAME}-0 (dedup ratio {dedup['dedup_ratio']}); under torch.profiler "
+          f"{wall * 1e3:.3f} ms, device busy {device_ms(busy):.3f} ms, idle share "
+          f"{out['idle']:.5f}; device events: "
+          + ", ".join(f"{k} x{cnt} {ms:.3f} ms" for k, (cnt, ms) in sorted(busy.items())),
+          flush=True)
+
+    t = time.perf_counter()
+    verify = await store.verify()
+    if not verify["ok"]:
+        raise AssertionError(f"verify found bad chunks: {verify['bad'][:4]}")
+    print(f"  verify {CKPT_NAME}-1: {verify['chunks']} chunks crc-clean in "
+          f"{time.perf_counter() - t:.3f} s", flush=True)
+
+    t = time.perf_counter()
+    gc_out = await ckpt_tool(cluster, "gc", CKPT_NAME, "--keep-last", "1")
+    old = await list_objects(io, prefix=f"{CKPT_NAME}@{CKPT_NAME}-0")
+    referenced = {c["object"] for c in manifest["chunks"]}
+    if gc_out["reclaimed_saves"] != [f"{CKPT_NAME}-0"] or set(old) - referenced:
+        raise AssertionError(f"gc left objects of {CKPT_NAME}-0: {sorted(set(old) - referenced)[:4]}")
+    print(f"  ckpt_tool gc --keep-last 1 (its own process): {len(gc_out['removed'])} objects of "
+          f"{CKPT_NAME}-0 removed, {len(old)} of its chunks kept (referenced by "
+          f"{CKPT_NAME}-1), {time.perf_counter() - t:.3f} s", flush=True)
+
+    t = time.perf_counter()
+    back = await store.restore(device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    check_restored("restore onto the card", back, tree, None)
+    del back
+    out["restore_gbps"] = nbytes / restore_s / 1e9
+    msg = [f"restore onto cuda {restore_s:.3f} s ({out['restore_gbps']:.4f} GB/s)"]
+    for (label, _devs), mesh, slabs in zip(MESHES, (mesh1, mesh4), (1, 2)):
+        t = time.perf_counter()
+        back = await store.restore(mesh=mesh)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        check_restored(f"restore onto the {label} mesh", back, tree, slabs)
+        del back
+        msg.append(f"onto the {label} mesh {seconds:.3f} s ({nbytes / seconds / 1e9:.4f} GB/s)")
+    print(f"  [{smi}] " + ", ".join(msg) + f"; every leaf equal to its source, the "
+          f"{len(CKPT_SHARDED)} kinds of stripe-laid tensors in 1 and 2 slabs",
+          flush=True)
+    return out
 
 
 def phase_daemon_path(gc, factory, smi: str) -> dict:
@@ -2861,6 +3100,120 @@ def phase_daemon_bench(smi: str) -> None:
           f"{time.perf_counter() - t:.2f} s (its process included):", flush=True)
     print(f"  {json.dumps(line)}", flush=True)
 
+
+# -- the device mesh (B8) --------------------------------------------------------
+
+#: phase 19: the north-star batch, 64 objects' (8, 512 KiB) data chunks
+MESH_BATCH = (OBJECTS, K, OBJECT_BYTES // K)
+#: (name, slot devices) of the meshes B8 runs on: the card alone, and four
+#: slots on it, each launching on its own stream
+MESHES = (("1x1", ["cuda:0"]), ("2x2", ["cuda:0"] * 4))
+B8_LAUNCHES = 20
+
+
+def b8_check(name: str, got: torch.Tensor, one: torch.Tensor, plain: torch.Tensor) -> int:
+    """A sharded output against one B3 launch over the whole batch and
+    against the plain version, bit for bit."""
+    err = max(check_equal(f"{name} vs one B3 launch", got, one),
+              check_equal(f"{name} vs the plain version", got, plain))
+    return err
+
+
+def phase_mesh_main(bp, sh, codec, es, objs, encoded) -> tuple[int, int]:
+    """Phase 19, the counted part: B8 through its entry points on both
+    meshes (sharded_encode/decode at the north-star batch, the planar entry
+    points on the burst's (8, 32 MiB) planes) and EncodeService(mesh=2x2) on
+    phase 4's burst. Returns B3's launches here and the max error."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    data = random_bytes(MESH_BATCH, gen)
+    enc = codec._encode
+    present = [i for i in range(K + M) if i not in ERASED][:K]
+    dec = codec.decode_bitmatrix(present, list(ERASED))
+    planes = torch.from_numpy(es.pack_objects(K, ((o, OBJECT_BYTES // K) for o in objs))).cuda()
+    parity = bp.gf_matmul_bitplane(enc.bits_t, data, tables=enc.tables_t)
+    survivors = torch.cat([data, parity], dim=1)[:, present, :]
+    planar_parity = bp.gf_matmul_bitplane(enc.bits_t, planes[None], tables=enc.tables_t)[0]
+    planar_survivors = torch.cat([planes, planar_parity])[present]
+    want = {  # one B3 launch over the whole batch, and the plain version
+        "encode": (parity, bp.gf_matmul_bitplane_plain(enc.bits_t, data)),
+        "decode": (bp.gf_matmul_bitplane(dec.bits_t, survivors, tables=dec.tables_t),
+                   bp.gf_matmul_bitplane_plain(dec.bits_t, survivors)),
+        "planar encode": (planar_parity, bp.gf_matmul_bitplane_plain(enc.bits_t, planes[None])[0]),
+        "planar decode": (
+            bp.gf_matmul_bitplane(dec.bits_t, planar_survivors[None], tables=dec.tables_t)[0],
+            bp.gf_matmul_bitplane_plain(dec.bits_t, planar_survivors[None])[0]),
+    }
+    torch.cuda.synchronize()
+    errs = []
+    bp.gf_matmul_bitplane.launches = 0
+    for label, devices in MESHES:
+        mesh = sh.ec_mesh(devices=devices)
+        got = {
+            "encode": sh.sharded_encode(codec, sh.shard_batch(data, mesh), mesh).full("cuda"),
+            "decode": sh.sharded_decode(codec, present, list(ERASED),
+                                        sh.shard_batch(survivors, mesh), mesh).full("cuda"),
+            "planar encode": sh.mesh_encode_planar(codec, planes, mesh),
+            "planar decode": sh.mesh_decode_planar(codec, present, list(ERASED),
+                                                   planar_survivors, mesh),
+        }
+        for kind, out in got.items():
+            errs.append(b8_check(f"B8 {kind} on the {label} mesh", out, *want[kind]))
+    mesh = sh.ec_mesh(devices=MESHES[1][1])
+    svc = es.EncodeService(mesh=mesh)
+
+    async def burst():
+        t = time.perf_counter()
+        chunks = await asyncio.gather(*(svc.encode(codec, o) for o in objs))
+        after, enc_s = svc.mesh_launches, time.perf_counter() - t
+        survivors = [{i: c for i, c in e.items() if i not in ERASED} for e in chunks]
+        t = time.perf_counter()
+        rebuilt = await asyncio.gather(*(svc.decode(codec, set(ERASED), s) for s in survivors))
+        return chunks, rebuilt, after, enc_s, time.perf_counter() - t
+
+    chunks, rebuilt, enc_launches, enc_s, dec_s = asyncio.run(burst())
+    torch.cuda.synchronize()
+    launches = bp.gf_matmul_bitplane.launches
+    dec_launches = svc.mesh_launches - enc_launches
+    print(f"  EncodeService(mesh=2x2) on phase 4's burst: encode {enc_s * 1e3:.3f} ms, decode "
+          f"{dec_s * 1e3:.3f} ms (host clock, first calls at these shapes); mesh launches "
+          f"encode {enc_launches}, "
+          f"decode {dec_launches}; chunks equal phase 4's {chunks == encoded}, rebuilt "
+          f"chunks {sorted(ERASED)} equal {all(r == {i: e[i] for i in ERASED} for r, e in zip(rebuilt, encoded))}",
+          flush=True)
+    if enc_launches < 1 or dec_launches < 1:
+        raise AssertionError("EncodeService(mesh=) did not take the mesh path both ways")
+    if chunks != encoded or any(r != {i: e[i] for i in ERASED} for r, e in zip(rebuilt, encoded)):
+        raise AssertionError("EncodeService(mesh=) chunks differ from phase 4's")
+    return launches, max(errs)
+
+
+def phase_mesh_times(bp, sh, codec, smi: str) -> dict:
+    """Phase 19, the times: B8's call on each mesh (the inputs already laid
+    out, as the entry points hand them on) beside one B3 launch at the same
+    bytes, the plain version and the bytes bound."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    data = random_bytes(MESH_BATCH, gen)
+    enc = codec._encode
+    moved = (K + M) * MESH_BATCH[0] * MESH_BATCH[2]
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    one = kernel_times(lambda: bp.gf_matmul_bitplane(enc.bits_t, data, tables=enc.tables_t),
+                       B8_LAUNCHES)
+    plain_ms = cuda_ms(lambda: bp.gf_matmul_bitplane_plain(enc.bits_t, data), 2)
+    print(f"  [{smi}] one B3 launch over {MESH_BATCH} -> ({OBJECTS}, {M}, {MESH_BATCH[2]}): "
+          f"{times_text(one)}, bound {bound_ms:.4f} ms ({moved} B at 3.35 TB/s), share "
+          f"{bound_ms / one['ms']:.3f}; plain {plain_ms:.3f} ms", flush=True)
+    out = {}
+    for label, devices in MESHES:
+        mesh = sh.ec_mesh(devices=devices)
+        laid = sh.shard_batch(data, mesh)
+        out[label] = kernel_times(lambda: sh._sharded_matmul(mesh, enc, laid), B8_LAUNCHES)
+        print(f"  [{smi}] B8 on the {label} mesh ({mesh.size} B3 launches a call): "
+              f"{times_text(out[label])}, share {bound_ms / out[label]['ms']:.3f}, against "
+              f"one B3 launch {out[label]['ms'] / one['ms']:.3f}x", flush=True)
+    return {**out["2x2"], "plain_ms": plain_ms, "bound_ms": bound_ms, "one_b3": one,
+            "meshes": out}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; a CUDA card is "
@@ -2883,6 +3236,7 @@ def main() -> int:
     from ceph_tpu_torch.ops import upmap_cuda as uc
     from ceph_tpu_torch.osd import encode_service as es
     from ceph_tpu_torch.osd.osdmap import OSDMap
+    from ceph_tpu_torch.parallel import sharding as sh
     from ceph_tpu_torch.sim import build_cluster
     from ceph_tpu_torch.tools import crush_bench, crushtool, ec_bench, psim
 
@@ -2909,13 +3263,13 @@ def main() -> int:
 
     print("phase 4: main path", flush=True)
     gc.gf_matmul_packed.launches = 0
-    objs, chunks0 = phase_main_path(codec, es.EncodeService, ec_bench)
+    objs, encoded = phase_main_path(codec, es.EncodeService, ec_bench)
     torch.cuda.synchronize()
     launches = gc.gf_matmul_packed.launches
     print(f"  gf_matmul_packed launches on the main path: {launches}", flush=True)
     if launches < 1:
         raise AssertionError("the main path never launched gf_matmul_packed")
-    check_outputs(codec, gf, objs, chunks0)
+    check_outputs(codec, gf, objs, encoded[0])
 
     print("phase 5: times", flush=True)
     times = phase_times(gc, codec, es, smi)
@@ -3004,6 +3358,15 @@ def main() -> int:
     print(f"  gf_matmul_bitplane launches on the daemon path: {daemon_b3}", flush=True)
     phase_daemon_bench(smi)
 
+    print("phase 19: the device mesh (B8) on the card", flush=True)
+    b8_launches, b8_err = phase_mesh_main(bp, sh, codec, es, objs, encoded)
+    print(f"  gf_matmul_bitplane launches on the mesh path (one per slot): {b8_launches}",
+          flush=True)
+    if b8_launches < 1:
+        raise AssertionError("the mesh path never launched B3 on a slot")
+    del objs, encoded
+    b8_times = phase_mesh_times(bp, sh, codec, smi)
+
     kernels = [{
         "name": "gf_matmul_packed",
         "route": "cuda",
@@ -3071,6 +3434,21 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": family_times[name]["library_ms"],
         })
+    kernels.append({
+        "name": "sharded_matmul",
+        "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/gf_matmul.cu",
+        "replaces": "ceph_tpu/parallel/sharding.py:50",
+        "launches": b8_launches,
+        "max_abs_err": b8_err,
+        "ms": b8_times["ms"],
+        "held_ms": b8_times["held_ms"],
+        "host_us": b8_times["host_us"],
+        "plain_ms": b8_times["plain_ms"],
+        "bound_ms": b8_times["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    })
     left = own_children()
     if left:
         raise AssertionError(f"processes still running: {left}")

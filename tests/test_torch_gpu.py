@@ -102,3 +102,63 @@ def test_live_k2m2_round_trip_on_card():
         return writes
 
     assert asyncio.run(asyncio.wait_for(main(), 120)) > 0
+
+
+@pytest.mark.gpu
+def test_sharded_matmul_on_a_slot_mesh_matches_one_launch():
+    """B8 on a 2x2 mesh of four slots on one card (a stream each): every
+    slot's B3 launch over its strided block, gathered, equals one B3 launch
+    over the whole batch, for an encode and a decode matrix."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on one)")
+    from ceph_tpu_torch.ec.registry import factory
+    from ceph_tpu_torch.ops import gf_bitplane as bp
+    from ceph_tpu_torch.parallel import sharding as sh
+
+    codec = factory("isa", {"k": "8", "m": "3", "technique": "cauchy"})
+    mesh = sh.ec_mesh(devices=["cuda:0"] * 4)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    data = torch.randint(0, 256, (8, 8, (1 << 16) + 24), dtype=torch.uint8, device="cuda",
+                         generator=gen)
+    before = bp.gf_matmul_bitplane.launches
+    got = sh.sharded_encode(codec, sh.shard_batch(data, mesh), mesh).full("cuda")
+    assert bp.gf_matmul_bitplane.launches == before + 4
+    assert torch.equal(got, codec.encode_array(data))
+    present, targets = list(range(3, 11)), [0, 1, 2]
+    survivors = torch.cat([data, got], dim=1)[:, 3:, :]
+    rebuilt = sh.sharded_decode(codec, present, targets, sh.shard_batch(survivors, mesh), mesh)
+    assert torch.equal(rebuilt.full("cuda"), data[:, :3, :])
+
+
+@pytest.mark.gpu
+def test_mesh_across_cards_matches_one_launch():
+    """On a host with several cards: the default mesh spans them, each slot
+    launches B3 on its own card, and EncodeService picks that mesh up by
+    itself; outputs equal one launch on card 0."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    import asyncio
+
+    from ceph_tpu_torch.ec.registry import factory
+    from ceph_tpu_torch.osd.encode_service import EncodeService
+    from ceph_tpu_torch.parallel import sharding as sh
+
+    codec = factory("isa", {"k": "8", "m": "3", "technique": "cauchy"})
+    mesh = sh.ec_mesh()
+    assert {d.index for d in mesh.slot_devices()} == set(range(torch.cuda.device_count()))
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    data = torch.randint(0, 256, (8, 8, 1 << 16), dtype=torch.uint8, device="cuda",
+                         generator=gen)
+    got = sh.sharded_encode(codec, sh.shard_batch(data, mesh), mesh)
+    assert {block.device.index for _idx, block in got.slots} == set(range(mesh.size))
+    assert torch.equal(got.full("cuda:0"), codec.encode_array(data))
+    rng = np.random.default_rng(12)
+    objs = [rng.bytes(1 << 20) for _ in range(8)]
+    svc = EncodeService()
+
+    async def burst():
+        return await asyncio.gather(*(svc.encode(codec, o) for o in objs))
+
+    chunks = asyncio.run(burst())
+    assert svc.mesh_launches == 1
+    assert chunks == [codec.encode(range(11), o) for o in objs]

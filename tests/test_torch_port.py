@@ -48,7 +48,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "ops/gf_cuda.py", "rados/cluster.py", "ec/native.py",
                  "native/build.py", "common/crc.py", "osd/daemon.py", "mon/monitor.py",
                  "rados/client.py", "msg/messenger.py", "lint/racecheck.py",
-                 "tools/daemon_bench.py", "vstart.py"):
+                 "tools/daemon_bench.py", "vstart.py", "parallel/sharding.py",
+                 "rados/striper.py", "ckpt/layout.py", "ckpt/writer.py", "ckpt/reader.py",
+                 "ckpt/store.py", "tools/ckpt_tool.py"):
         assert os.path.join(REPO, "ceph_tpu_torch", *part.split("/")) in files
     bad = [
         (os.path.relpath(path, REPO), mod)
@@ -144,6 +146,27 @@ def test_default_device_entry_points_raise_without_a_card(tmp_path):
     for flag in ("--mgr", "--recovery", "--multiprocess", "--chaos=1"):
         with pytest.raises(NotImplementedError, match="not ported"):
             daemon_bench.run([flag, "--device", "cpu"])
+
+    import asyncio
+    from types import SimpleNamespace
+
+    from ceph_tpu_torch.ckpt import CkptStore
+    from ceph_tpu_torch.common.config import Config
+    from ceph_tpu_torch.parallel import ec_mesh
+    from ceph_tpu_torch.tools import ckpt_tool
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        ec_mesh()
+    with pytest.raises(RuntimeError, match="cuda"):
+        ec_mesh(devices=["cuda:0"] * 4)
+    assert ec_mesh(devices=["cpu"] * 4).shape == {"stripe": 2, "byte": 2}
+    with pytest.raises(RuntimeError, match="cuda"):
+        asyncio.run(CkptStore(SimpleNamespace(
+            objecter=SimpleNamespace(config=Config()), pool_id=1, qos_class=None,
+            read_policy=None), "x").restore())
+    for cmd in (["bench", "--mb", "1"], ["restore", "x"], ["ls", "x"]):
+        with pytest.raises(RuntimeError, match="cuda"):
+            ckpt_tool.main(cmd)
 
 
 def test_explicit_cpu_and_unknown_devices():
