@@ -383,8 +383,7 @@ def create_store(db: KeyValueDB | None = None, config=None):
     MemDB (the MemStore-tier equivalent for tests)."""
     kind = config.get("osd_objectstore") if config is not None else None
     if kind == "blockstore":
-        raise NotImplementedError(
-            "osd_objectstore=blockstore is not ported to ceph_tpu_torch "
-            "yet; use kstore-file or memstore"
-        )
+        from ceph_tpu_torch.osd.blockstore import BlockStore
+
+        return BlockStore(db, config=config)
     return KStore(db)

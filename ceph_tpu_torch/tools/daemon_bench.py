@@ -7,15 +7,19 @@ client op -> primary -> batch-encode service (planar GF(2^8) launches on
 the daemons' device) -> shard fan-out -> acks. Reports daemon-path GB/s and
 the launch-coalescing ratio, as distinct from the raw kernel figure.
 
-Port of the reference package's `tools/daemon_bench.py`, its in-process run
-only. `--device` (default cuda, which raises without a card) is where every
-daemon's codecs and EncodeService run. `--mgr`, `--recovery`, `--chaos`,
-`--multiprocess` and `--client-worker` need modules not ported yet and
+Port of the reference package's `tools/daemon_bench.py`: the in-process
+run, and `--multiprocess` (every daemon its own process through
+`vstart.VStart`, plus `--clients` client worker processes, each a
+`--client-worker` run of this module). `--device` (default cuda, which
+raises without a card) is where every daemon's codecs and EncodeService run,
+in every process: on a card each daemon and worker holds its own CUDA
+context. `--mgr`, `--recovery` and `--chaos` need modules not ported yet and
 raise instead of running.
 
 Usage:
     python -m ceph_tpu_torch.tools.daemon_bench [--osds 6] [--size 262144]
         [--objects 96] [--concurrency 24] [--k 4 --m 2] [--device cpu]
+        [--multiprocess --clients 4]
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import time
 from ceph_tpu_torch.device import resolve_device
 
 #: options whose modes need modules this package does not have yet
-NOT_PORTED = ("mgr", "recovery", "chaos", "multiprocess", "client_worker")
+NOT_PORTED = ("mgr", "recovery", "chaos")
 
 
 def parse_args(argv: list[str] | None = None):
@@ -349,8 +353,202 @@ async def main(args) -> dict:
 
 
 
+async def client_worker(args) -> dict:
+    """One client process of a multiprocess run: write then read its own
+    object range against the already-created pool, report wall windows."""
+    from ceph_tpu_torch.rados.client import Rados
+    from ceph_tpu_torch.vstart import ClusterSpec
+
+    spec = ClusterSpec.load(args.client_worker)
+    rados = Rados(
+        f"client.bench{args.worker_id}", spec.monmap(),
+        config=spec.build_config(), device=args.device,
+    )
+    await rados.connect()
+    io = rados.io_ctx(1)
+    if args.read_policy != "primary":
+        io.read_policy = args.read_policy
+    payload = bytes(range(256)) * (args.size // 256)
+    names = [
+        f"o-{args.worker_id}-{j}" for j in range(args.objects)
+    ]
+
+    async def stream(chunk):
+        for name in chunk:
+            await io.write_full(name, payload)
+
+    lanes = max(1, args.concurrency)
+    chunks = [names[i::lanes] for i in range(lanes)]
+    w0 = time.time()
+    await asyncio.gather(*(stream(c) for c in chunks))
+    w1 = time.time()
+
+    # hot-set reads hit worker 0's objects so EVERY client process
+    # contends on the same few primaries under policy=primary; they wait
+    # until every worker has written (a worker that started late would
+    # otherwise be read before it wrote)
+    if args.hot_set:
+        wrote = os.path.join(spec.run_dir, "bench-wrote.{}")
+        open(wrote.format(args.worker_id), "w").close()
+        while not all(os.path.exists(wrote.format(w)) for w in range(args.clients)):
+            await asyncio.sleep(0.05)
+        rnames = [
+            f"o-0-{j % args.objects}" for j in range(args.hot_set)
+        ]
+        reads = [
+            rnames[(args.worker_id + j) % len(rnames)]
+            for j in range(args.objects)
+        ]
+    else:
+        reads = names
+
+    async def stream_r(chunk):
+        for name in chunk:
+            if await io.read(name) != payload:
+                raise AssertionError(f"{name}: read back differs")
+
+    rchunks = [reads[i::lanes] for i in range(lanes)]
+    r0 = time.time()
+    await asyncio.gather(*(stream_r(c) for c in rchunks))
+    r1 = time.time()
+    await rados.shutdown()
+    return {
+        "bytes": len(payload) * len(names),
+        "read_bytes": len(payload) * len(reads),
+        "write_window": [w0, w1],
+        "read_window": [r0, r1],
+    }
+
+
+async def main_multiprocess(args) -> dict:
+    """N OSD processes + C client processes, no shared interpreter
+    anywhere on the data path; every one of them on `args.device`."""
+    import subprocess
+    import tempfile
+
+    from ceph_tpu_torch.vstart import VStart
+
+    run_dir = args.run_dir or tempfile.mkdtemp(prefix="daemon-bench-")
+    # builds the device's kernels before any daemon or worker starts
+    v = VStart(
+        run_dir, n_mons=3, n_osds=args.osds,
+        config={"osd_objectstore": args.objectstore},
+        device=args.device,
+    )
+    v.start()
+    procs = []
+    try:
+        # every daemon past its boot (interpreter, CUDA context) first
+        await asyncio.to_thread(v.wait_started, 300)
+        rados = v.client()
+        await rados.connect()
+        await v.wait_healthy(rados=rados, timeout=120)
+        if args.pool == "rep":
+            await rados.mon_command(
+                "osd pool create",
+                {"pool_id": 1, "crush_rule": 1, "size": 3,
+                 "pg_num": 32},
+            )
+        else:
+            await rados.mon_command(
+                "osd erasure-code-profile set",
+                {"name": "bench",
+                 "profile": {"plugin": "tpu", "k": str(args.k),
+                             "m": str(args.m)}},
+            )
+            await rados.mon_command(
+                "osd pool create",
+                {"pool_id": 1, "crush_rule": 0,
+                 "erasure_code_profile": "bench", "pg_num": 32},
+            )
+        io = rados.io_ctx(1)
+        payload = bytes(range(256)) * (args.size // 256)
+        # warm: peering + each OSD's first launch at this shape
+        for i in range(2 * args.osds):
+            await io.write_full(f"warm-{i}", payload)
+
+        async def fleet_reads() -> dict:
+            out = {}
+            for osd in range(args.osds):
+                dump = await rados.objecter.osd_admin(osd, "perf dump")
+                out[osd] = read_counts(dump.get(f"osd.{osd}", {}))
+            return out
+
+        # write legs never touch the read counters, so the pre-spawn
+        # snapshot isolates the workers' read legs exactly
+        reads0 = await fleet_reads()
+
+        per_client = max(1, args.objects // args.clients)
+        lanes = max(1, args.concurrency // args.clients)
+        procs = [
+            subprocess.Popen(
+                [sys.executable, "-m", "ceph_tpu_torch.tools.daemon_bench",
+                 "--client-worker", v.spec_path,
+                 "--worker-id", str(w),
+                 "--clients", str(args.clients),
+                 "--objects", str(per_client),
+                 "--size", str(args.size),
+                 "--concurrency", str(lanes),
+                 "--read-policy", args.read_policy,
+                 "--hot-set", str(args.hot_set),
+                 "--device", str(args.device)],
+                stdout=subprocess.PIPE, env=v.env,
+                cwd=os.path.dirname(os.path.dirname(os.path.dirname(
+                    os.path.abspath(__file__)))),
+            )
+            for w in range(args.clients)
+        ]
+        # the workers run while this loop idles: wait for them off it
+        raw_outs = await asyncio.gather(*(
+            asyncio.to_thread(p.communicate, timeout=600) for p in procs
+        ))
+        for p in procs:
+            if p.returncode:
+                raise RuntimeError(
+                    f"client worker pid {p.pid} failed "
+                    f"(rc={p.returncode})"
+                )
+        outs = [json.loads(o[0]) for o in raw_outs]
+        reads1 = await fleet_reads()
+        read_dist = {
+            osd: {k: reads1[osd][k] - reads0[osd][k]
+                  for k in reads1[osd]}
+            for osd in reads1
+        }
+        await rados.shutdown()
+        total = sum(o["bytes"] for o in outs)
+        read_total = sum(o.get("read_bytes", o["bytes"]) for o in outs)
+        w_span = max(o["write_window"][1] for o in outs) - min(
+            o["write_window"][0] for o in outs
+        )
+        r_span = max(o["read_window"][1] for o in outs) - min(
+            o["read_window"][0] for o in outs
+        )
+        return {
+            "mode": "multiprocess",
+            "ncores": os.cpu_count(),
+            "write_gbps": total / w_span / 1e9,
+            "read_gbps": read_total / r_span / 1e9,
+            "read_policy": args.read_policy,
+            "read_distribution": read_dist,
+            "object_size": args.size,
+            "objects": per_client * args.clients,
+            "k": args.k,
+            "m": args.m,
+            "osds": args.osds,
+            "clients": args.clients,
+        }
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        v.stop()
+
+
 def run(argv: list[str] | None = None) -> dict:
-    """Parse `argv`, run the in-process bench, return its result dict."""
+    """Parse `argv`, run the bench (or one client worker), return its
+    result dict."""
     args = parse_args(argv)
     asked = [name for name in NOT_PORTED
              if getattr(args, name) not in (None, False)]
@@ -360,6 +558,10 @@ def run(argv: list[str] | None = None) -> dict:
             + " not ported to ceph_tpu_torch yet"
         )
     args.device = resolve_device(args.device)
+    if args.client_worker:
+        return asyncio.run(asyncio.wait_for(client_worker(args), 600))
+    if args.multiprocess:
+        return asyncio.run(asyncio.wait_for(main_multiprocess(args), 900))
     return asyncio.run(asyncio.wait_for(main(args), 600))
 
 

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Six main paths, each driven with the launch counts zeroed just before it
+Eight main paths, each driven with the launch counts zeroed just before it
 and read just after. The RS erasure-code data path as an OSD meets it: the
 plugin registry (`factory("isa", k=8 m=3 technique=cauchy)`), the batching
 `EncodeService`, and the hand-written GF(2^8) CUDA kernel under both. Then
@@ -31,7 +31,10 @@ saved again incrementally, verified, collected and restored onto the card
 and onto device meshes. Then the device mesh as a multi-device OSD meets it:
 the sharded GF(2^8) matmul (B8, one launch of the byte-layout kernel per mesh
 slot) through sharded_encode/decode, the planar entry points and
-EncodeService's mesh path. Phases:
+EncodeService's mesh path. Then the cluster as its users deploy it: a
+process per monitor and per OSD daemon (vstart), each OSD on BlockStore and
+each with its own CUDA context, its EncodeService encoding, degraded-decoding
+and recovering through the GF(2^8) kernel. Phases:
 
   1. the card: name, count, and nvidia-smi's name and power limit;
   2. build every kernel under ceph_tpu_torch/csrc with nvcc (ptxas report);
@@ -143,7 +146,7 @@ EncodeService's mesh path. Phases:
       after it: B1 warmed at the pool's shape first, then 3 monitors, 12 OSD
       daemons (a host each, straw2, jewel; rule 0 takes k + m) and a Rados
       client in this process on the card; pool 1 isa k=8 m=3 cauchy (pg_num
-      64), pool 2 replicated size 3 (pg_num 32); the write window (128 x 4
+      64), pool 2 replicated size 3 (pg_num 32); the write window (64 x 4
       MiB into pool 1 at concurrency 32, 16 into pool 2, 8 partial
       overwrites, 16 rewrites traced and 16 under torch.profiler), a read of
       every object, 2 OSDs stopped and marked down, the degraded-read window
@@ -167,8 +170,7 @@ EncodeService's mesh path. Phases:
       save's objects gone but those the new one references), then restored
       onto the card, onto the 1x1 mesh and onto a 2x2 mesh of four slots on
       the card (reshard-on-load: the laid-out tensors in 2 slabs), every leaf
-      equal to its source; then the port's daemon_bench at the reference's
-      README configuration;
+      equal to its source (phase 20 runs daemon_bench, multi-process);
   19. the device mesh (B8), the byte-layout matmul's count zeroed before
       and read after: sharded_encode and sharded_decode (erasures {0,1,2})
       of 64 x (8, 512 KiB) and mesh_encode_planar / mesh_decode_planar on the
@@ -179,10 +181,29 @@ EncodeService's mesh path. Phases:
       the mesh path, its chunks equal phase 4's; times (CUDA events): B8's
       call on each mesh beside one launch over the whole batch, the plain
       version and the bytes bound;
-  20. no process this script started is left (nvcc, nvidia-smi, the
-      worker processes and ckpt_tool are all waited for), then a `kernels`
-      JSON line;
-  21. the `ok` JSON line, last.
+  20. the multi-process cluster, B1 counted in each OSD process per window
+      (`status`'s EncodeService launches and `perf dump`'s wrapper counts,
+      over osd_admin): vstart.VStart on the card builds the kernels and the
+      native libraries, then spawns 3 monitor and 12 OSD processes, each OSD
+      on BlockStore (FileDB and a block file in a temporary run dir), each
+      daemon with its own CUDA context; rule 0's max_size raised to 11 with
+      `osd crush set` (the operator's route); pool 1 isa k=8 m=3 cauchy
+      (pg_num 64), pool 2 replicated size 3 (pg_num 32); the write window
+      (128 x 4 MiB into pool 1 and 16 into pool 2 by 4 client processes, 32
+      in flight in all), a read of every object; the crash window (2 OSD
+      processes SIGKILLed and marked down, every pool-1 object read degraded,
+      16 more written); the restart window (the 2 restarted over their
+      surviving stores until every PG is clean and the pushes stop), every
+      object read again; every daemon stopped with SIGTERM (each must exit
+      0), then every stopped store read offline with the port's
+      objectstore_tool: each pool-1 shard and its hinfo digest equal the CPU
+      isa codec's, and `objectstore_tool --op fsck` clean on each; times
+      (boot, PG activation, write, read and degraded-read GB/s, ms an
+      object, time to clean); then `daemon_bench --multiprocess` at the
+      reference README's hot-set configuration on the card;
+  21. no process this script started is left (nvcc, nvidia-smi, the
+      worker processes, the daemons and the tools are all waited for);
+  22. a `kernels` JSON line, then the `ok` JSON line, last.
 
 Each kernel is timed three ways: `ms`, its call time (CUDA events around
 back-to-back calls of its wrapper, as every share and comparison uses);
@@ -204,6 +225,7 @@ import json
 import os
 import pickle
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -2339,7 +2361,9 @@ def phase_native_and_tools(factory, smi: str) -> None:
 DAEMON_OSDS = 12
 DAEMON_EC_PROFILE = {"plugin": "isa", "k": str(K), "m": str(M), "technique": "cauchy"}
 DAEMON_PG_NUM = {EC_POOL: 64, REP_POOL: 32}
-DAEMON_OBJECTS = {EC_POOL: 128, REP_POOL: 16}
+#: 64 pool-1 objects (once 128; halved when the multi-process phase joined
+#: the smoke, to keep its whole run near its earlier length)
+DAEMON_OBJECTS = {EC_POOL: 64, REP_POOL: 16}
 DAEMON_CONCURRENCY = 32
 DAEMON_PARTIAL = 8
 #: full rewrites of pool-1 objects traced (spans), then under torch.profiler
@@ -2350,9 +2374,6 @@ DAEMON_RECOVERY_S = 300
 #: polls in a row (0.2 s apart; a map epoch that holds the loop for seconds
 #: counts as one poll)
 DAEMON_QUIET_POLLS = 25
-#: daemon_bench at the reference's README configuration (its defaults:
-#: 6 OSDs, k=4 m=2, 96 x 256 KiB, concurrency 24)
-DAEMON_BENCH_ARGV = ["--device", "cuda"]
 #: B1, the kernel under every daemon-path encode, degraded read and rebuild
 B1_KERNEL = "gf_matmul_packed_kernel"
 
@@ -2650,7 +2671,7 @@ async def daemon_sequence(gc, cluster: DaemonCluster, objects: dict, smi: str) -
                 raise AssertionError(f"read {key} returned other bytes")
         return call
 
-    # write window: 128 EC puts, 16 replicated, 8 partial overwrites, 16
+    # write window: 64 EC puts, 16 replicated, 8 partial overwrites, 16
     # traced rewrites, 16 profiled rewrites
     watch.start()
     t = time.perf_counter()
@@ -3082,25 +3103,6 @@ def phase_daemon_path(gc, factory, smi: str) -> dict:
     return {"launches": sum(c[0] for c in out["launches"].values()), "times": out["times"]}
 
 
-def phase_daemon_bench(smi: str) -> None:
-    """Phase 18b: `python -m ceph_tpu_torch.tools.daemon_bench` once, as a
-    user runs it (a process of its own), at the reference's README
-    configuration on the card; its JSON line is printed as it gives it."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    argv = [sys.executable, "-m", "ceph_tpu_torch.tools.daemon_bench", *DAEMON_BENCH_ARGV]
-    t = time.perf_counter()
-    proc = subprocess.run(argv, cwd=here, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise AssertionError(f"daemon_bench exited {proc.returncode}:\n"
-                             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
-    line = json.loads(proc.stdout.splitlines()[-1])
-    if line["launches"] < 1 or line["objects"] < 1:
-        raise AssertionError(f"daemon_bench launched nothing: {line}")
-    print(f"  [{smi}] daemon_bench {' '.join(DAEMON_BENCH_ARGV)} in "
-          f"{time.perf_counter() - t:.2f} s (its process included):", flush=True)
-    print(f"  {json.dumps(line)}", flush=True)
-
-
 # -- the device mesh (B8) --------------------------------------------------------
 
 #: phase 19: the north-star batch, 64 objects' (8, 512 KiB) data chunks
@@ -3214,6 +3216,466 @@ def phase_mesh_times(bp, sh, codec, smi: str) -> dict:
             "meshes": out}
 
 
+# -- phase 20: the multi-process cluster --------------------------------------------
+
+MP_MONS, MP_OSDS = 3, 12
+MP_PG_NUM = {EC_POOL: 64, REP_POOL: 32}
+MP_OBJECTS = {EC_POOL: 128, REP_POOL: 16}
+MP_CLIENTS = 4
+#: client ops in flight, over all client processes
+MP_CONCURRENCY = 32
+#: pool-1 objects written while the victims are down
+MP_CRASH_WRITES = 16
+#: two OSDs, each its own host (initial_osdmap puts every OSD on a host)
+MP_VICTIMS = (3, 7)
+#: the daemons' config: OSDs on BlockStore (FileDB and a block file in the
+#: run dir); a monitor lease of 1 s, so that a peon calls an election after
+#: 4 s without one rather than VStart's 1 s while 15 processes boot and
+#: place PGs on the host's 8 cores; the victims are marked down by
+#: command and the grace outlasts their time down (ROADMAP §C: a revived OSD
+#: is otherwise reported failed off its peers' stale heartbeat stamps); PG
+#: stats reach the monitors every second, so their health reads what the PGs
+#: are now
+MP_CONFIG = {"osd_objectstore": "blockstore", "mon_lease": 1.0, "mon_election_timeout": 5.0,
+             "osd_heartbeat_interval": 0.5, "osd_heartbeat_grace": 120,
+             "osd_mon_report_interval": 1.0}
+MP_QUIET_POLLS = 10
+MP_RECOVERY_S = 300
+#: the health checks that say a PG is not clean
+MP_PG_CHECKS = ("PG_AVAILABILITY", "PG_DEGRADED", "PG_UNDERSIZED", "PG_BACKFILLING")
+#: daemon_bench --multiprocess at the reference README's hot-set configuration
+MP_BENCH_ARGV = ["--multiprocess", "--device", "cuda", "--osds", "6", "--clients", "4",
+                 "--k", "2", "--m", "2", "--objects", "64", "--hot-set", "3",
+                 "--read-policy", "balance", "--size", "262144"]
+
+
+def mp_object(pool: int, i: int) -> bytes:
+    """Object i of `pool` in phase 20, 4 MiB from the seed (any process
+    makes the same bytes)."""
+    return np.random.default_rng([SEED + 20, pool, i]).bytes(OBJECT_BYTES)
+
+
+def _mp_client(job):
+    """Worker: one client process of phase 20, on the card, writing its
+    share of the objects with `lanes` in flight; returns its window and the
+    ops' seconds."""
+    from ceph_tpu_torch.vstart import ClusterSpec
+
+    spec_path, worker, keys, lanes = job
+    spec = ClusterSpec.load(spec_path)
+
+    async def run():
+        from ceph_tpu_torch.rados.client import Rados
+
+        rados = Rados(f"client.mp{worker}", spec.monmap(), config=spec.build_config(),
+                      device="cuda")
+        await rados.connect()
+        io = {pool: rados.io_ctx(pool) for pool in MP_OBJECTS}
+        calls = [lambda k=k: io[k[0]].write_full(f"m-{k[0]}-{k[1]}", mp_object(*k))
+                 for k in keys]
+        t0 = time.time()
+        seconds = await daemon_gather(calls, lanes)
+        t1 = time.time()
+        await rados.shutdown()
+        return {"window": (t0, t1), "seconds": seconds}
+
+    return asyncio.run(asyncio.wait_for(run(), 600))
+
+
+class MPCluster:
+    """Phase 20's view of a VStart cluster through its admin client."""
+
+    def __init__(self, v, rados):
+        self.v, self.rados = v, rados
+        self.total_pgs = sum(MP_PG_NUM.values())
+
+    async def osd_admin(self, cmd: str) -> dict:
+        out = {}
+        for osd in sorted(self.v.osds):
+            out[osd] = await self.rados.objecter.osd_admin(osd, cmd, timeout=30.0)
+        return out
+
+    async def counts(self) -> dict:
+        """{osd: (EncodeService launches, objects, B1 wrapper launches,
+        recovery pushes)} of every running OSD process."""
+        status = await self.osd_admin("status")
+        perf = await self.osd_admin("perf dump")
+        return {osd: (status[osd]["ec_launches"], status[osd]["ec_objects"],
+                      perf[osd]["kernels"]["gf_matmul_packed"],
+                      perf[osd][f"osd.{osd}"].get("recovery_pushes", 0))
+                for osd in status}
+
+    @staticmethod
+    def delta(before: dict, after: dict) -> tuple:
+        """Per-field sums of after - before; a process that started in
+        between counts from zero."""
+        return tuple(sum(after[o][f] - before.get(o, (0, 0, 0, 0))[f] for o in after)
+                     for f in range(4))
+
+    async def pgs(self, clean: bool) -> tuple[bool, dict]:
+        """(every PG active, and with `clean` none degraded, undersized or
+        backfilling, in the monitors' health and the OSDs' own counts)."""
+        status = await self.osd_admin("status")
+        health = await self.rados.mon_command("health")
+        active = sum(s["active_pgs"] for s in status.values())
+        checks = set(health["checks"]) & set(MP_PG_CHECKS if clean else MP_PG_CHECKS[:1])
+        return active >= self.total_pgs and not checks, health
+
+    async def wait_pgs(self, clean: bool, timeout: float, what: str) -> float:
+        """Polls until pgs(clean) holds (and, with `clean`, no recovery push
+        was made) for MP_QUIET_POLLS polls in a row (2 without `clean`);
+        returns the seconds to the first of them."""
+        loop = asyncio.get_running_loop()
+        t0 = loop.time()
+        quiet, since, last, health = 0, t0, None, None
+        while quiet < (MP_QUIET_POLLS if clean else 2):
+            if loop.time() - t0 > timeout:
+                raise AssertionError(f"timed out after {timeout} s waiting for {what}; "
+                                     f"health {health}")
+            await asyncio.sleep(0.5)
+            ok, health = await self.pgs(clean)
+            pushes = sum(c[3] for c in (await self.counts()).values()) if clean else None
+            if not ok or pushes != last:
+                quiet, last = 0, pushes
+                continue
+            if quiet == 0:
+                since = loop.time()
+            quiet += 1
+        return since - t0
+
+
+async def mp_quorum_settled(rados, settle_s: float = 5.0, timeout: float = 120.0) -> None:
+    """Waits until every monitor is in the quorum and its election epoch has
+    held for `settle_s`: a monitor whose boot-time election proposal reaches
+    the leader late deposes it (ROADMAP §C), so the first commands wait for
+    the boot elections to end."""
+    loop = asyncio.get_running_loop()
+    end, last, since = loop.time() + timeout, None, loop.time()
+    while True:
+        st = await rados.mon_command("status")
+        now = (st["election_epoch"], tuple(st["quorum"]))
+        if now != last or len(st["quorum"]) < MP_MONS:
+            last, since = now, loop.time()
+        elif loop.time() - since >= settle_s:
+            return
+        if loop.time() > end:
+            raise AssertionError(f"the monitors' quorum did not settle: {st}")
+        await asyncio.sleep(0.25)
+
+
+async def mp_mon_command(rados, cmd: str, args: dict, resent: list) -> dict:
+    """A monitor command, sent again (and noted in `resent`) when the
+    leader lost its reign while the command was proposed: the monitor
+    fails such proposals so that the sender retries against the new
+    leader. A pool create whose first proposal committed all the same is
+    not sent again."""
+    for _ in range(5):
+        try:
+            return await rados.mon_command(cmd, args)
+        except RuntimeError as e:
+            if "leadership lost" not in str(e):
+                raise
+        resent.append(cmd)
+        await asyncio.sleep(1.0)
+        if cmd == "osd pool create" and args["pool_id"] in (
+                await rados.mon_command("status"))["pools"]:
+            return {"pool_id": args["pool_id"]}
+    raise AssertionError(f"{cmd}: the leader lost its reign five times")
+
+
+def mp_crush_max_size(rados, decompile_crushmap, size: int) -> str:
+    """The committed crush map with rule 0's max_size raised to `size`, as
+    crushtool text: what an operator sends with `osd crush set`."""
+    import copy
+
+    crush = copy.deepcopy(rados.objecter.osdmap.crush)
+    crush.rules[0].max_size = size
+    return decompile_crushmap(crush)
+
+
+def mp_check_stores(run_dir: str, want: dict, factory) -> int:
+    """Phase 20's offline check: every pool-1 shard in every stopped OSD's
+    store, read with the port's objectstore_tool, and its hinfo digest, equal
+    what the CPU isa codec makes of the object's bytes. Returns the shards."""
+    from ceph_tpu_torch.common.crc import ceph_crc32c
+    from ceph_tpu_torch.osd.ecutil import SEED as HINFO_SEED
+    from ceph_tpu_torch.tools.objectstore_tool import open_store
+
+    cpu = factory("isa", {k: v for k, v in DAEMON_EC_PROFILE.items() if k != "plugin"},
+                  device="cpu")
+    n = cpu.get_chunk_count()
+    size = cpu.get_chunk_size(OBJECT_BYTES)
+    if size * K != OBJECT_BYTES or any(len(d) != OBJECT_BYTES for d in want.values()):
+        raise AssertionError("phase 20's objects must split into k chunks with no padding")
+    # the codec's array API over batches of 16 objects: data chunk i of an
+    # object is its bytes [i*size, (i+1)*size), as encode() cuts them
+    names, chunks = sorted(want), {}
+    for lo in range(0, len(names), 16):
+        batch = names[lo:lo + 16]
+        data = torch.from_numpy(np.frombuffer(b"".join(want[m] for m in batch),
+                                              np.uint8).reshape(len(batch), K, size).copy())
+        parity = cpu.encode_array(data).numpy()
+        for j, name in enumerate(batch):
+            chunks[name] = [want[name][i * size:(i + 1) * size] for i in range(K)] + [
+                parity[j, i].tobytes() for i in range(M)]
+    held: dict[str, set] = {name: set() for name in want}
+    checked = 0
+    for osd in range(MP_OSDS):
+        store, backend = open_store(os.path.join(run_dir, f"osd.{osd}.kv"))
+        if backend != "blockstore":
+            raise AssertionError(f"osd.{osd}'s store is {backend}, not blockstore")
+        try:
+            for coll in store.list_collections():
+                if not coll.startswith(f"pg_{EC_POOL}_"):
+                    continue
+                for obj in store.list_objects(coll):
+                    base, sep, pos = obj.rpartition(".s")
+                    if not (sep and pos.isdigit()):
+                        continue
+                    pos = int(pos)
+                    chunk = chunks[base][pos]
+                    hinfo = store.getattrs(coll, obj)["hinfo"]
+                    if store.read(coll, obj) != chunk:
+                        raise AssertionError(f"osd.{osd} {obj} differs from the CPU isa "
+                                             "codec's chunk")
+                    if (hinfo.total_chunk_size != len(chunk) or
+                            hinfo.cumulative_shard_hashes[pos] != ceph_crc32c(HINFO_SEED,
+                                                                              chunk)):
+                        raise AssertionError(f"osd.{osd} {obj}: hinfo differs from the chunk's")
+                    held[base].add(pos)
+                    checked += 1
+        finally:
+            store.close()
+    short = {name: sorted(set(range(n)) - pos) for name, pos in held.items() if len(pos) < n}
+    if short:
+        raise AssertionError(f"objects without some shard in any store: "
+                             f"{list(short.items())[:4]}")
+    return checked
+
+
+def mp_fsck(run_dir: str) -> list[int]:
+    """`python -m ceph_tpu_torch.tools.objectstore_tool --op fsck` on every
+    stopped OSD's store, all started together; returns the error counts."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "ceph_tpu_torch.tools.objectstore_tool", "--data-path",
+         os.path.join(run_dir, f"osd.{osd}.kv"), "--op", "fsck"],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for osd in range(MP_OSDS)]
+    counts = []
+    for osd, proc in enumerate(procs):
+        out, err = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"objectstore_tool --op fsck on osd.{osd} exited "
+                                 f"{proc.returncode}: {out[-1000:]}{err[-1000:]}")
+        counts.append(json.loads(out)["error_count"])
+    return counts
+
+
+def smi_query(*args: str) -> str:
+    return subprocess.run(["nvidia-smi", *args], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+
+
+async def mp_sequence(v, decompile_crushmap, smi: str) -> dict:
+    """Phase 20's drive of a started VStart cluster; returns what the
+    offline check needs, the B1 counts per window and the times."""
+    out = {"launches": {}, "times": {}}
+    started_s = await asyncio.to_thread(v.wait_started, 300)
+    t0 = time.perf_counter()
+    rados = v.client("client.admin")
+    await rados.connect()
+    await v.wait_healthy(rados=rados, timeout=300)
+    boot_s = started_s + time.perf_counter() - t0
+    c = MPCluster(v, rados)
+    print(f"  {MP_MONS} mon and {MP_OSDS} OSD processes started (each on its CUDA context) "
+          f"{started_s:.3f} s after spawning, every OSD up in the client's map at "
+          f"{boot_s:.3f} s", flush=True)
+    apps = smi_query("--query-compute-apps=pid,used_memory", "--format=csv,noheader")
+    print(f"  nvidia-smi compute apps ({len(apps.splitlines())}; pids may be another "
+          f"namespace's): {'; '.join(apps.splitlines())}", flush=True)
+
+    await mp_quorum_settled(rados)
+    resent: list[str] = []
+    t = time.perf_counter()
+    await mp_mon_command(rados, "osd crush set", {
+        "crush_text": mp_crush_max_size(rados, decompile_crushmap, K + M)}, resent)
+    await mp_mon_command(rados, "osd erasure-code-profile set",
+                         {"name": "mp", "profile": dict(DAEMON_EC_PROFILE)}, resent)
+    await mp_mon_command(rados, "osd pool create", {
+        "pool_id": EC_POOL, "crush_rule": 0, "erasure_code_profile": "mp",
+        "pg_num": MP_PG_NUM[EC_POOL]}, resent)
+    await mp_mon_command(rados, "osd pool create", {
+        "pool_id": REP_POOL, "crush_rule": 1, "size": 3, "pg_num": MP_PG_NUM[REP_POOL]},
+        resent)
+    for _ in range(60):
+        if rados.objecter.osdmap.crush.rules[0].max_size == K + M:
+            break
+        await asyncio.sleep(0.5)
+    else:
+        raise AssertionError("osd crush set did not raise rule 0's max_size")
+    cmds_s = time.perf_counter() - t
+    act_s = cmds_s + await c.wait_pgs(False, 600, "every PG active")
+    print(f"  rule 0's max_size set to {K + M} by `osd crush set`; pool {EC_POOL}: isa k={K} "
+          f"m={M} cauchy pg_num {MP_PG_NUM[EC_POOL]}, pool {REP_POOL}: replicated size 3 "
+          f"pg_num {MP_PG_NUM[REP_POOL]}; every PG active {act_s:.3f} s after the first "
+          f"command (the commands took {cmds_s:.3f} s)", flush=True)
+    out["times"].update(boot_s=boot_s, activation_s=act_s)
+
+    io = {pool: rados.io_ctx(pool) for pool in MP_OBJECTS}
+    keys = [(pool, i) for pool, n in MP_OBJECTS.items() for i in range(n)]
+
+    async def read_all(keys, what):
+        async def one(k):
+            data = await io[k[0]].read(f"m-{k[0]}-{k[1]}")
+            if data != mp_object(*k):
+                raise AssertionError(f"{what}: m-{k[0]}-{k[1]} read back other bytes")
+        calls = [lambda k=k: one(k) for k in keys]
+        t = time.perf_counter()
+        await daemon_gather(calls, MP_CONCURRENCY)
+        return time.perf_counter() - t
+
+    # write window: 4 client processes, MP_CONCURRENCY ops in flight in all
+    before = await c.counts()
+    jobs = [(v.spec_path, w, keys[w::MP_CLIENTS], MP_CONCURRENCY // MP_CLIENTS)
+            for w in range(MP_CLIENTS)]
+    t = time.perf_counter()
+    results = await asyncio.to_thread(in_workers, "_mp_client", jobs)
+    wall = time.perf_counter() - t
+    out["launches"]["write"] = c.delta(before, await c.counts())
+    span = max(r["window"][1] for r in results) - min(r["window"][0] for r in results)
+    lat = [s for r in results for s in r["seconds"]]
+    n_ec = MP_OBJECTS[EC_POOL]
+    nbytes = len(keys) * OBJECT_BYTES
+    out["times"]["write"] = {"gbps": nbytes / span / 1e9, "s": span,
+                             "ms_per_object": span / len(keys) * 1e3,
+                             "latency_ms": float(np.mean(lat)) * 1e3}
+    print(f"  [{smi}] write of {n_ec} EC objects (4 MiB, isa k={K} m={M}) and "
+          f"{MP_OBJECTS[REP_POOL]} replicated by {MP_CLIENTS} client processes at "
+          f"{MP_CONCURRENCY} in flight: {span:.3f} s from the first op to the last "
+          f"({wall:.3f} s with the processes' start), {out['times']['write']['gbps']:.4f} "
+          f"GB/s, {span / len(keys) * 1e3:.3f} ms an object, mean op latency "
+          f"{np.mean(lat) * 1e3:.3f} ms (p50 {np.percentile(lat, 50) * 1e3:.3f}, max "
+          f"{max(lat) * 1e3:.3f})", flush=True)
+    read_s = await read_all(keys, "read")
+    out["times"]["read"] = {"gbps": nbytes / read_s / 1e9, "s": read_s}
+    print(f"  [{smi}] read of all {len(keys)} objects at {MP_CONCURRENCY} in flight: "
+          f"{read_s:.3f} s, {out['times']['read']['gbps']:.4f} GB/s, every read exact",
+          flush=True)
+
+    # crash window: two OSD processes SIGKILLed and marked down
+    before = await c.counts()
+    for victim in MP_VICTIMS:
+        v.kill_osd(victim)
+        before.pop(victim)
+        await mp_mon_command(rados, "osd down", {"osd": victim}, resent)
+    repeer_s = await c.wait_pgs(False, 600, "every PG active after the kill")
+    ec_keys = [k for k in keys if k[0] == EC_POOL]
+    deg_s = await read_all(ec_keys, "degraded read")
+    new = [(EC_POOL, n_ec + i) for i in range(MP_CRASH_WRITES)]
+    t = time.perf_counter()
+    await daemon_gather([lambda k=k: io[EC_POOL].write_full(f"m-{k[0]}-{k[1]}", mp_object(*k))
+                         for k in new], MP_CONCURRENCY)
+    crash_w_s = time.perf_counter() - t
+    out["launches"]["crash"] = c.delta(before, await c.counts())
+    out["times"]["degraded read"] = {"gbps": len(ec_keys) * OBJECT_BYTES / deg_s / 1e9,
+                                     "s": deg_s}
+    print(f"  [{smi}] OSD processes {list(MP_VICTIMS)} SIGKILLed and marked down, every PG "
+          f"active again in {repeer_s:.3f} s; degraded read of {len(ec_keys)} EC objects: "
+          f"{deg_s:.3f} s, {out['times']['degraded read']['gbps']:.4f} GB/s, every read "
+          f"exact; {MP_CRASH_WRITES} EC objects written with them down in {crash_w_s:.3f} s",
+          flush=True)
+    keys += new
+
+    # restart window: the victims restarted over their surviving BlockStores
+    before = await c.counts()
+    t = time.perf_counter()
+    for victim in MP_VICTIMS:
+        v.start_osd(victim)
+    await v.wait_healthy(rados=rados, timeout=300)
+    up_s = time.perf_counter() - t
+    clean_s = up_s + await c.wait_pgs(True, MP_RECOVERY_S, "every PG clean, pushes stopped")
+    out["launches"]["restart"] = c.delta(before, await c.counts())
+    read2_s = await read_all(keys, "read after the restart")
+    out["times"]["restart"] = {"up_s": up_s, "clean_s": clean_s,
+                               "pushes": out["launches"]["restart"][3]}
+    print(f"  [{smi}] OSDs {list(MP_VICTIMS)} restarted over their stores, up in {up_s:.3f} "
+          f"s, every PG clean and no push for {MP_QUIET_POLLS} polls {clean_s:.3f} s after "
+          f"the restart ({out['launches']['restart'][3]} objects and shards pushed); read of "
+          f"all {len(keys)} objects: {read2_s:.3f} s, every read exact", flush=True)
+    print(f"  monitor commands sent again after the leader lost its reign: {len(resent)} "
+          f"{resent}", flush=True)
+    await rados.shutdown()
+    out["want"] = {f"m-{p}-{i}": mp_object(p, i) for p, i in keys if p == EC_POOL}
+    return out
+
+
+def phase_multiprocess(factory, decompile_crushmap, smi: str) -> dict:
+    """Phase 20: the port's cluster as its users deploy it, one process per
+    daemon on the card, through vstart.VStart; B1 counted in every OSD
+    process per window over `osd_admin`. Returns B1's launches and times."""
+    import shutil
+    import tempfile
+
+    from ceph_tpu_torch.vstart import VStart
+
+    run_dir = tempfile.mkdtemp(prefix="chip-smoke-vstart-")
+    try:
+        v = VStart(run_dir, n_mons=MP_MONS, n_osds=MP_OSDS, config=MP_CONFIG, device="cuda")
+        t = time.perf_counter()
+        v.start()
+        print(f"  VStart on {v.device}: kernels and native libraries built before the "
+              f"spawn, {MP_MONS} mon and {MP_OSDS} OSD processes (BlockStore) spawned in "
+              f"{time.perf_counter() - t:.3f} s; run dir {run_dir}", flush=True)
+        try:
+            out = asyncio.run(asyncio.wait_for(mp_sequence(v, decompile_crushmap, smi), 1200))
+        except BaseException:
+            for name in v.exited() or ("mon.0", "osd.0"):
+                print(f"  {name}'s log ends:\n{v.log_tail(name)}", flush=True)
+            raise
+        finally:
+            rcs = v.stop(signal.SIGTERM)
+        print(f"  SIGTERM to every daemon: exit codes {rcs}", flush=True)
+        if any(rcs.values()) or len(rcs) != MP_MONS + MP_OSDS:
+            raise AssertionError(f"a daemon did not stop cleanly: {rcs}")
+        names = ("EncodeService launches", "objects", "B1 wrapper launches", "pushes")
+        for window, counts in out["launches"].items():
+            print(f"  {window} window, summed over the OSD processes: "
+                  + ", ".join(f"{n} {c}" for n, c in zip(names, counts)), flush=True)
+            if counts[0] < 1 or counts[2] < 1:
+                raise AssertionError(f"B1 did not launch in the {window} window: {counts}")
+        t = time.perf_counter()
+        checked = mp_check_stores(run_dir, out["want"], factory)
+        errors = mp_fsck(run_dir)
+        print(f"  offline, the stopped stores: {checked} pool-{EC_POOL} shards of "
+              f"{len(out['want'])} objects equal the CPU isa codec's chunks, each with its "
+              f"hinfo digest; objectstore_tool --op fsck error counts {errors} "
+              f"({time.perf_counter() - t:.2f} s)", flush=True)
+        if any(errors):
+            raise AssertionError(f"fsck found errors: {errors}")
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    return {"launches": sum(c[2] for c in out["launches"].values()), "times": out["times"]}
+
+
+def phase_multiprocess_bench(smi: str) -> None:
+    """Phase 20b: `python -m ceph_tpu_torch.tools.daemon_bench --multiprocess`
+    at the reference README's hot-set configuration, on the card."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    argv = [sys.executable, "-m", "ceph_tpu_torch.tools.daemon_bench", *MP_BENCH_ARGV]
+    t = time.perf_counter()
+    proc = subprocess.run(argv, cwd=here, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"daemon_bench --multiprocess exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    line = json.loads(proc.stdout.splitlines()[-1])
+    if line["mode"] != "multiprocess" or line["objects"] < 1:
+        raise AssertionError(f"daemon_bench --multiprocess ran nothing: {line}")
+    print(f"  [{smi}] daemon_bench {' '.join(MP_BENCH_ARGV)} in "
+          f"{time.perf_counter() - t:.2f} s (its processes included):", flush=True)
+    print(f"  {json.dumps(line)}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; a CUDA card is "
@@ -3247,6 +3709,9 @@ def main() -> int:
     print(f"  torch {torch.__version__} cuda {torch.version.cuda}; "
           f"device {kind}, count {count}", flush=True)
     print(smi, flush=True)
+    mode = smi_query("--query-gpu=compute_mode", "--format=csv,noheader")
+    print(f"  compute mode: {mode} (the multi-process phase opens the card from every "
+          "daemon process)", flush=True)
 
     print("phase 2: build", flush=True)
     t0 = time.perf_counter()
@@ -3356,7 +3821,6 @@ def main() -> int:
     daemon = phase_daemon_path(gc, factory, smi)
     daemon_b3 = bp.gf_matmul_bitplane.launches
     print(f"  gf_matmul_bitplane launches on the daemon path: {daemon_b3}", flush=True)
-    phase_daemon_bench(smi)
 
     print("phase 19: the device mesh (B8) on the card", flush=True)
     b8_launches, b8_err = phase_mesh_main(bp, sh, codec, es, objs, encoded)
@@ -3367,12 +3831,21 @@ def main() -> int:
     del objs, encoded
     b8_times = phase_mesh_times(bp, sh, codec, smi)
 
+    print("phase 20: the multi-process cluster (VStart: a process per daemon) on the card",
+          flush=True)
+    mp = phase_multiprocess(factory, decompile_crushmap, smi)
+    print(f"  B1 launches in the OSD processes (their wrappers' counts): {mp['launches']}",
+          flush=True)
+    phase_multiprocess_bench(smi)
+
+    print("phase 21: processes left", flush=True)
+
     kernels = [{
         "name": "gf_matmul_packed",
         "route": "cuda",
         "source": "ceph_tpu_torch/csrc/gf_matmul.cu",
         "replaces": "ceph_tpu/ops/gf_pallas.py:141",
-        "launches": launches + daemon["launches"],
+        "launches": launches + daemon["launches"] + mp["launches"],
         "max_abs_err": max_err,
         "ms": times["ms"],
         "held_ms": times["held_ms"],
@@ -3452,6 +3925,8 @@ def main() -> int:
     left = own_children()
     if left:
         raise AssertionError(f"processes still running: {left}")
+    print("  none", flush=True)
+    print("phase 22: kernels and the result", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -162,3 +162,63 @@ def test_mesh_across_cards_matches_one_launch():
     chunks = asyncio.run(burst())
     assert svc.mesh_launches == 1
     assert chunks == [codec.encode(range(11), o) for o in objs]
+
+
+@pytest.mark.gpu
+def test_multiprocess_cluster_on_card(tmp_path):
+    """A process per daemon on the card (vstart): 1 monitor and 4 OSDs on
+    BlockStore, an isa k=2 m=2 pool; an EC round trip, one OSD process
+    SIGKILLed (reads degraded) and restarted over its store, and B1 launched
+    in the OSD processes (their EncodeService and wrapper counts)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on one)")
+    import asyncio
+    import contextlib
+    import signal
+
+    from ceph_tpu_torch.msg.messenger import next_dispatch_event
+    from ceph_tpu_torch.vstart import VStart
+
+    v = VStart(str(tmp_path), n_mons=1, n_osds=4, device="cuda",
+               config={"osd_objectstore": "blockstore", "osd_heartbeat_grace": 60})
+    rng = np.random.default_rng(21)
+    objects = {f"g-{i}": rng.bytes(1 << 20) for i in range(8)}
+
+    async def main():
+        await asyncio.to_thread(v.wait_started, 300)
+        r = v.client()
+        await r.connect()
+        await v.wait_healthy(rados=r, timeout=180)
+        await r.mon_command("osd erasure-code-profile set", {
+            "name": "k2m2", "profile": {"plugin": "isa", "k": "2", "m": "2"}})
+        await r.mon_command("osd pool create", {
+            "pool_id": 1, "crush_rule": 0, "erasure_code_profile": "k2m2", "pg_num": 8})
+        io = r.io_ctx(1)
+        await asyncio.gather(*(io.write_full(n, d) for n, d in objects.items()))
+        victim = r.objecter._calc_target(1, "g-0")
+        v.kill_osd(victim)
+        await r.mon_command("osd down", {"osd": victim})
+        while r.objecter.osdmap.osd_up[victim]:  # re-checked at each message
+            with contextlib.suppress(asyncio.TimeoutError):
+                await asyncio.wait_for(next_dispatch_event(), 0.25)
+        for n, d in objects.items():
+            assert await io.read(n) == d
+        v.start_osd(victim)
+        await v.wait_healthy(rados=r, timeout=180)
+        for n, d in objects.items():
+            assert await io.read(n) == d
+        counts = []
+        for osd in sorted(v.osds):
+            status = await r.objecter.osd_admin(osd, "status")
+            perf = await r.objecter.osd_admin(osd, "perf dump")
+            counts.append((status["ec_launches"], perf["kernels"]["gf_matmul_packed"]))
+        await r.shutdown()
+        return counts
+
+    v.start()
+    try:
+        counts = asyncio.run(asyncio.wait_for(main(), 600))
+    finally:
+        rcs = v.stop(signal.SIGTERM)
+    assert sum(c[0] for c in counts) > 0 and sum(c[1] for c in counts) > 0, counts
+    assert set(rcs.values()) == {0}, rcs

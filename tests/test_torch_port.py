@@ -143,7 +143,7 @@ def test_default_device_entry_points_raise_without_a_card(tmp_path):
     assert OSDService(0, monmap, device="cpu").device.type == "cpu"
     assert Monitor(0, monmap, osdmap, device="cpu").device.type == "cpu"
     assert Rados("client.admin", monmap, device="cpu").objecter.device.type == "cpu"
-    for flag in ("--mgr", "--recovery", "--multiprocess", "--chaos=1"):
+    for flag in ("--mgr", "--recovery", "--chaos=1"):
         with pytest.raises(NotImplementedError, match="not ported"):
             daemon_bench.run([flag, "--device", "cpu"])
 
