@@ -12,8 +12,9 @@ Subpackages ported so far:
              (plugins tpu, isa, jerasure matrix techniques)
   osd      — EncodeService: concurrent objects coalesced into one planar
              launch; the OSDMap; the OSD daemon (daemon) on KStore
-             (objectstore), with its op vector (ops), object classes (cls)
-             and extent cache
+             (objectstore) or BlockStore (blockstore, with its allocator),
+             with its op vector (ops), object classes (cls) and extent
+             cache; `python -m ceph_tpu_torch.osd` is its process
   crush    — CRUSH placement: the scalar mapper and the batched torch_mapper
              with its hand-written straw2 choose kernel (ops/crush_cuda,
              csrc/crush_choose.cu), and CrushTester
@@ -21,7 +22,8 @@ Subpackages ported so far:
              (put, degraded get, scrub, recover) over the codecs and OSDMap;
              the RADOS client (client: Rados, Objecter, IoCtx)
   msg      — the messenger: frames, TCP and LocalStack transports, shm rings
-  mon      — the monitors (paxos, the OSDMap service) and MonClient
+  mon      — the monitors (paxos, the OSDMap service) and MonClient;
+             `python -m ceph_tpu_torch.mon` is a monitor's process
   auth     — cephx tickets
   lint     — racecheck, the runtime asyncio race/leak detector
   native   — C sources built into _build/ at first use: the dlopened
@@ -31,12 +33,25 @@ Subpackages ported so far:
              matmul: one launch of the byte-layout kernel per mesh slot
   ckpt     — the checkpoint store over RADOS (manifests byte-identical to
              ceph_tpu's; restore onto a device or a mesh)
+  coord    — the training fleet over RADOS: lease locks (lock), the roster,
+             elections and barriers (fleet), the fleet mesh (mesh) and the
+             driver of fleet-parallel saves, mesh restores and exact data
+             resume (driver)
+  data     — the dataset store: sharded, crc-checked record ingest and the
+             deterministic, prefetching, resumable per-host iterator
   common   — config, perf counters, logs, tracer, admin hub, crc32c, the
-             KV store, op queues, watchdog, wire faults, compressors
+             KV store, op queues, throttles, watchdog, wire faults,
+             compressors
   tools    — ec_bench, the ceph_erasure_code_benchmark drop-in; crushtool
-             and crush_bench; ec_non_regression and cpu_ec_baseline;
-             daemon_bench (in-process); ckpt_tool
-  vstart   — the genesis OSDMap and loopback port picking
+             and crush_bench; osdmaptool and psim; ec_non_regression and
+             cpu_ec_baseline; daemon_bench (in-process and --multiprocess);
+             ckpt_tool, data_tool and fleet_tool (their benches share
+             bench_cluster); rados, ceph, dencoder, objectstore_tool,
+             monstore_tool and store_bench
+  mgr      — the balancer module; sim — the cluster simulator behind psim
+  vstart   — the multi-process cluster: VStart spawns a process per monitor
+             and OSD daemon from a cluster spec (the genesis OSDMap,
+             loopback ports, the daemon mains)
 
 Device rule: entry points run on `cuda` unless the caller passes
 `device="cpu"`; asking for `cuda` where none is present raises.

@@ -193,7 +193,9 @@ def place(value, spec, mesh: Mesh) -> MeshArray:
     device the tensor already lies on holds a view of it (no copy); every
     other slot gets a copy of its block, one per distinct (slab, device)."""
     if isinstance(value, np.ndarray):
-        value = torch.from_numpy(np.ascontiguousarray(value))
+        # not np.ascontiguousarray, which makes a 0-d array 1-d
+        contiguous = value.flags.c_contiguous and value.flags.writeable
+        value = torch.from_numpy(value if contiguous else value.copy())
     kept = _kept(spec, mesh, value.dim())
     slots, copies = [], {}
     for idx, dev in zip(device_slices(value.shape, kept, mesh), mesh.slot_devices()):

@@ -40,10 +40,7 @@ import sys
 import time
 
 from ceph_tpu_torch.device import resolve_device
-
-REP_POOL = 1
-EC_POOL = 2
-BENCH_OSDS = 6
+from ceph_tpu_torch.tools.bench_cluster import EC_POOL, REP_POOL, BenchCluster
 
 
 async def _store(args):
@@ -124,49 +121,6 @@ async def _amain(args) -> int:
         await rados.shutdown()
 
 
-async def _bench_cluster(device):
-    """3 monitors, BENCH_OSDS OSD daemons and a client in this process, with
-    a size-3 pool (REP_POOL) and a k=2 m=2 EC pool (EC_POOL)."""
-    from ceph_tpu_torch.common.config import Config
-    from ceph_tpu_torch.mon import MonMap, Monitor
-    from ceph_tpu_torch.osd.daemon import OSDService
-    from ceph_tpu_torch.rados.client import Rados
-    from ceph_tpu_torch.vstart import initial_osdmap
-
-    cfg = Config()
-    for key, value in (("mon_lease", 0.1), ("mon_election_timeout", 0.4),
-                       ("osd_heartbeat_interval", 0.5), ("osd_heartbeat_grace", 5)):
-        cfg.set(key, value)
-    monmap = MonMap(addrs=[("127.0.0.1", 0)] * 3)
-    mons = [Monitor(r, monmap, initial_osdmap(BENCH_OSDS), config=cfg, device=device)
-            for r in range(3)]
-    for m in mons:
-        await m.bind()
-    for m in mons:
-        m.go()
-    osds = []
-    for i in range(BENCH_OSDS):
-        osds.append(OSDService(i, monmap, config=cfg, device=device))
-        await osds[-1].start()
-    rados = Rados("client.ckptbench", monmap, config=cfg, device=device)
-    await rados.connect()
-    await rados.mon_command("osd erasure-code-profile set", {
-        "name": "k2m2", "profile": {"plugin": "tpu", "k": "2", "m": "2"}})
-    await rados.mon_command("osd pool create", {
-        "pool_id": REP_POOL, "crush_rule": 1, "size": 3, "pg_num": 8})
-    await rados.mon_command("osd pool create", {
-        "pool_id": EC_POOL, "crush_rule": 0, "erasure_code_profile": "k2m2", "pg_num": 8})
-
-    async def stop():
-        await rados.shutdown()
-        for o in osds:
-            await o.stop()
-        for m in mons:
-            await m.stop()
-
-    return rados, stop
-
-
 async def _bench(args) -> dict:
     """Save/restore GB/s against an in-process cluster (no external
     daemons needed)."""
@@ -177,7 +131,8 @@ async def _bench(args) -> dict:
 
     device = resolve_device(args.device)
     pool = EC_POOL if args.pool_kind == "ec" else REP_POOL
-    rados, stop = await _bench_cluster(device)
+    cluster = await BenchCluster(device).start("client.ckptbench")
+    rados = cluster.rados
     try:
         rng = np.random.default_rng(0)
         per = (args.mb * (1 << 20)) // max(args.arrays, 1)
@@ -255,7 +210,7 @@ async def _bench(args) -> dict:
             assert same(back), "async restore mismatch"
         return result
     finally:
-        await stop()
+        await cluster.stop()
 
 
 def parse_args(argv=None) -> argparse.Namespace:

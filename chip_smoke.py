@@ -168,9 +168,8 @@ and recovering through the GF(2^8) kernel. Phases:
       against persist time, idle share under torch.profiler), verified,
       collected by `ckpt_tool gc --keep-last 1` in its own process (the old
       save's objects gone but those the new one references), then restored
-      onto the card, onto the 1x1 mesh and onto a 2x2 mesh of four slots on
-      the card (reshard-on-load: the laid-out tensors in 2 slabs), every leaf
-      equal to its source (phase 20 runs daemon_bench, multi-process);
+      onto the card, every leaf equal to its source (phase 20 runs
+      daemon_bench, multi-process; phase 21 restores onto fleet meshes);
   19. the device mesh (B8), the byte-layout matmul's count zeroed before
       and read after: sharded_encode and sharded_decode (erasures {0,1,2})
       of 64 x (8, 512 KiB) and mesh_encode_planar / mesh_decode_planar on the
@@ -201,9 +200,30 @@ and recovering through the GF(2^8) kernel. Phases:
       (boot, PG activation, write, read and degraded-read GB/s, ms an
       object, time to clean); then `daemon_bench --multiprocess` at the
       reference README's hot-set configuration on the card;
-  21. no process this script started is left (nvcc, nvidia-smi, the
+  21. the training fleet and the dataset store on phase 20's cluster,
+      before its SIGTERM, B1 counted in the OSD processes per window: the
+      dataset window (65,536 records of 1,024 uint16 GPT-2 tokens, 128 MiB
+      from the seed, ingested through DataStore into pool 1; `python -m
+      ceph_tpu_torch.tools.data_tool ... verify` in its own process; one
+      epoch read as 4 hosts at batch 12, with the prefetch pipeline and
+      without it; each host's records equal the source rows at the ids
+      epoch_permutation and host_slice give, no record twice or missing;
+      ingest and read GB/s, records/s, block-cache hit rate); the
+      fleet-parallel save window (4 in-process Fleet members, each on its
+      own client, save GPT-2 small's parameters collectively from a 4-slot
+      fleet mesh on the card, then restore_mesh, every rank's
+      restore_rank_shards, and restore_mesh on a 3-slot mesh after one
+      member leaves; every leaf and slab equal to its source; save and
+      restore GB/s, each rank's prepared bytes as a share of the tree); the
+      failover window (3 `python -m ceph_tpu_torch.tools.fleet_tool worker`
+      processes on the card at tests/test_fleet_live.py's shape, the leader
+      SIGKILLed mid-save; the survivors re-elect, restore the committed HEAD
+      and resume with no acknowledged record twice or missing; the final
+      HEAD equals the tool's `_tree(step)`; `fleet_tool status` prints the
+      roster);
+  22. no process this script started is left (nvcc, nvidia-smi, the
       worker processes, the daemons and the tools are all waited for);
-  22. a `kernels` JSON line, then the `ok` JSON line, last.
+  23. a `kernels` JSON line, then the `ok` JSON line, last.
 
 Each kernel is timed three ways: `ms`, its call time (CUDA events around
 back-to-back calls of its wrapper, as every share and comparison uses);
@@ -2843,8 +2863,8 @@ CKPT_NAME = "gpt2"
 CKPT_CONFIG = {"ckpt_chunk_target_bytes": 4 << 20, "ckpt_max_inflight": 32}
 #: the layer whose tensors change before the second, incremental save
 CKPT_CHANGED_LAYER = 5
-#: tensors laid out on `stripe` (the reshard-on-load case): the embeddings
-#: and the MLP weights
+#: tensors saved laid out on a mesh's `stripe` axis: the embeddings and the
+#: MLP weights
 CKPT_SHARDED = ("wte", "wpe", "c_fc.weight", "mlp.c_proj.weight")
 
 
@@ -2896,27 +2916,14 @@ def as_full(leaf) -> torch.Tensor:
     return leaf.full("cuda") if hasattr(leaf, "slots") else leaf
 
 
-def check_restored(label: str, got: dict, want: dict, sharded_slabs: int | None) -> None:
-    """Every restored leaf equal to its source (each slot to its slab of it);
-    with `sharded_slabs`, each CKPT_SHARDED leaf is laid out in that many
-    distinct slabs."""
+def check_restored(label: str, got: dict, want: dict) -> None:
+    """Every restored leaf equal to its source."""
     got_leaves = dict(leaves(got))
     if set(got_leaves) != {p for p, _ in leaves(want)}:
         raise AssertionError(f"{label}: the restored tree has other leaves")
     for path, src in leaves(want):
-        full = as_full(src)
-        out = got_leaves[path]
-        if sharded_slabs is None:
-            if not torch.equal(out, full):
-                raise AssertionError(f"{label}: {'/'.join(path)} differs")
-            continue
-        for idx, block in out.slots:
-            if not torch.equal(block, full[idx]):
-                raise AssertionError(f"{label}: {'/'.join(path)} slot {idx} differs")
-        if path[-1].endswith(CKPT_SHARDED):
-            slabs = {tuple(sl.indices(n) for sl, n in zip(idx, out.shape)) for idx, _b in out.slots}
-            if len(slabs) != sharded_slabs:
-                raise AssertionError(f"{label}: {'/'.join(path)} in {len(slabs)} slabs")
+        if not torch.equal(got_leaves[path], as_full(src)):
+            raise AssertionError(f"{label}: {'/'.join(path)} differs")
 
 
 async def ckpt_tool(cluster, *argv) -> dict:
@@ -2939,8 +2946,9 @@ async def ckpt_window(cluster: DaemonCluster, watch, smi: str) -> dict:
     """Phase 18's checkpoint window on the live cluster: GPT-2 small's
     parameters saved into pool 1, saved again in the background after
     one layer changed (incremental), verified, collected by ckpt_tool gc
-    --keep-last 1, then restored whole onto the card and onto the 1x1 and
-    2x2 meshes (reshard-on-load); B1 counted over the first save."""
+    --keep-last 1, then restored whole onto the card; B1 counted over the
+    first save. (Its restores onto the 1x1 and 2x2 meshes were cut for
+    time: phase 21 restores onto fleet meshes through the same reader.)"""
     from ceph_tpu_torch.ckpt import CkptStore, layout
     from ceph_tpu_torch.ckpt.gc import list_objects
     from ceph_tpu_torch.parallel import sharding as sh
@@ -2949,7 +2957,7 @@ async def ckpt_window(cluster: DaemonCluster, watch, smi: str) -> dict:
         cluster.cfg.set(key, value)
     io = cluster.rados.io_ctx(EC_POOL)
     store = CkptStore(io, CKPT_NAME)
-    mesh1, mesh4 = (sh.ec_mesh(devices=devs) for _l, devs in MESHES)
+    mesh1 = sh.ec_mesh(devices=MESHES[0][1])
     gen = torch.Generator(device="cuda").manual_seed(SEED + 180)
     t = time.perf_counter()
     tree = gpt2_state(sh, mesh1, gen)
@@ -3020,21 +3028,11 @@ async def ckpt_window(cluster: DaemonCluster, watch, smi: str) -> dict:
     back = await store.restore(device="cuda")
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t
-    check_restored("restore onto the card", back, tree, None)
+    check_restored("restore onto the card", back, tree)
     del back
     out["restore_gbps"] = nbytes / restore_s / 1e9
-    msg = [f"restore onto cuda {restore_s:.3f} s ({out['restore_gbps']:.4f} GB/s)"]
-    for (label, _devs), mesh, slabs in zip(MESHES, (mesh1, mesh4), (1, 2)):
-        t = time.perf_counter()
-        back = await store.restore(mesh=mesh)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t
-        check_restored(f"restore onto the {label} mesh", back, tree, slabs)
-        del back
-        msg.append(f"onto the {label} mesh {seconds:.3f} s ({nbytes / seconds / 1e9:.4f} GB/s)")
-    print(f"  [{smi}] " + ", ".join(msg) + f"; every leaf equal to its source, the "
-          f"{len(CKPT_SHARDED)} kinds of stripe-laid tensors in 1 and 2 slabs",
-          flush=True)
+    print(f"  [{smi}] restore onto cuda {restore_s:.3f} s ({out['restore_gbps']:.4f} GB/s); "
+          f"every leaf equal to its source (mesh restores: phase 21)", flush=True)
     return out
 
 
@@ -3420,6 +3418,7 @@ def mp_check_stores(run_dir: str, want: dict, factory) -> int:
                 parity[j, i].tobytes() for i in range(M)]
     held: dict[str, set] = {name: set() for name in want}
     checked = 0
+    # phase 21's objects share the pool; fsck covers them
     for osd in range(MP_OSDS):
         store, backend = open_store(os.path.join(run_dir, f"osd.{osd}.kv"))
         if backend != "blockstore":
@@ -3431,6 +3430,8 @@ def mp_check_stores(run_dir: str, want: dict, factory) -> int:
                 for obj in store.list_objects(coll):
                     base, sep, pos = obj.rpartition(".s")
                     if not (sep and pos.isdigit()):
+                        continue
+                    if base not in chunks:
                         continue
                     pos = int(pos)
                     chunk = chunks[base][pos]
@@ -3629,6 +3630,9 @@ def phase_multiprocess(factory, decompile_crushmap, smi: str) -> dict:
               f"{time.perf_counter() - t:.3f} s; run dir {run_dir}", flush=True)
         try:
             out = asyncio.run(asyncio.wait_for(mp_sequence(v, decompile_crushmap, smi), 1200))
+            print("phase 21: the training fleet and the dataset store on this cluster",
+                  flush=True)
+            fleet = asyncio.run(asyncio.wait_for(fleet_sequence(v, smi), 900))
         except BaseException:
             for name in v.exited() or ("mon.0", "osd.0"):
                 print(f"  {name}'s log ends:\n{v.log_tail(name)}", flush=True)
@@ -3655,7 +3659,8 @@ def phase_multiprocess(factory, decompile_crushmap, smi: str) -> dict:
             raise AssertionError(f"fsck found errors: {errors}")
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
-    return {"launches": sum(c[2] for c in out["launches"].values()), "times": out["times"]}
+    return {"launches": sum(c[2] for c in out["launches"].values()), "times": out["times"],
+            "fleet": fleet}
 
 
 def phase_multiprocess_bench(smi: str) -> None:
@@ -3674,6 +3679,405 @@ def phase_multiprocess_bench(smi: str) -> None:
     print(f"  [{smi}] daemon_bench {' '.join(MP_BENCH_ARGV)} in "
           f"{time.perf_counter() - t:.2f} s (its processes included):", flush=True)
     print(f"  {json.dumps(line)}", flush=True)
+
+
+# -- phase 21: the training fleet and the dataset store ------------------------------
+
+#: the dataset: GPT-2-tokenised text as nanoGPT stores it (uint16 tokens, which
+#: GPT-2's vocabulary fits), 65,536 records of 1,024 tokens: 128 MiB
+DS_RECORDS, DS_TOKENS = 65_536, 1024
+DS_NAME = "owt-tokens"
+#: hosts of the fleet and of the dataset's epoch, at nanoGPT's batch size
+FLEET_HOSTS = 4
+DS_BATCH = 12
+#: the pass without the prefetch pipeline reads this many batches a host, a
+#: cut: on the card 4 hosts read 318-363 records/s without prefetch, so a
+#: whole epoch would take over 3 minutes
+DS_NOPREFETCH_BATCHES = 64
+FLEET_NAME = "gpt2-fleet"
+#: tests/test_fleet_live.py's failover shape: records, steps before and after
+#: the committed save, batch, seed and lease
+FO_RECORDS, FO_PRE, FO_MID, FO_BATCH, FO_SEED, FO_LEASE = 96, 3, 2, 4, 7, 2.0
+
+
+def ds_tokens() -> np.ndarray:
+    return np.random.default_rng(SEED + 21).integers(0, GPT2["vocab"], (DS_RECORDS, DS_TOKENS),
+                                                     dtype=np.uint16)
+
+
+def ds_host_ids() -> list[np.ndarray]:
+    """Each host's record ids in epoch 0, in numpy: the permutation cut by
+    host_slice."""
+    from ceph_tpu_torch.data import epoch_permutation
+    from ceph_tpu_torch.parallel.sharding import host_slice
+
+    perm = epoch_permutation(DS_RECORDS, SEED, 0)
+    return [perm[host_slice(DS_RECORDS, FLEET_HOSTS, h)] for h in range(FLEET_HOSTS)]
+
+
+def _ds_host(job):
+    """Worker: one training host of phase 21 reading its share of the
+    dataset's epoch, every batch checked against the source records at the
+    ids ds_host_ids gives; without prefetch, DS_NOPREFETCH_BATCHES batches.
+    Returns its window, records read and the store's counters."""
+    from ceph_tpu_torch.vstart import ClusterSpec
+
+    spec_path, h, prefetch = job
+    spec = ClusterSpec.load(spec_path)
+    tokens, want = ds_tokens(), ds_host_ids()[h]
+
+    async def run():
+        from ceph_tpu_torch.data import DataStore
+        from ceph_tpu_torch.rados.client import Rados
+
+        cfg = spec.build_config()
+        if not prefetch:
+            cfg.set("data_prefetch_batches", 0)
+        rados = Rados(f"client.ds{h}", spec.monmap(), config=cfg, device="cuda")
+        await rados.connect()
+        st = DataStore(rados.io_ctx(EC_POOL), DS_NAME)
+        t0 = time.time()
+        it = await st.iterator(seed=SEED, batch_size=DS_BATCH, num_hosts=FLEET_HOSTS, host=h)
+        pos = 0
+        async for batch in it:
+            if not np.array_equal(batch, tokens[want[pos:pos + len(batch)]]):
+                raise AssertionError(f"host {h}: batch at position {pos} differs from the "
+                                     "source records at its ids")
+            pos += len(batch)
+            if not prefetch and pos == DS_NOPREFETCH_BATCHES * DS_BATCH:
+                break
+        t1 = time.time()
+        if pos != (len(want) if prefetch else min(len(want), DS_NOPREFETCH_BATCHES * DS_BATCH)):
+            raise AssertionError(f"host {h} read {pos} of {len(want)} records")
+        await rados.shutdown()
+        return {"window": (t0, t1), "records": pos, "perf": st.perf_dump()}
+
+    return asyncio.run(asyncio.wait_for(run(), 600))
+
+
+async def port_tool(v, tool: str, *argv: str, stderr=None):
+    """`python -m ceph_tpu_torch.tools.<tool>` against the cluster's monitors
+    on pool 1, on the card: its stdout; or, given a file for its `stderr`,
+    the running process."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    hosts = ",".join(f"{h}:{p}" for h, p in v.spec.monmap().addrs)
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, "-m", f"ceph_tpu_torch.tools.{tool}", "--mon-host", hosts, "--pool",
+        str(EC_POOL), "--device", "cuda", *argv, cwd=here, stdout=subprocess.PIPE,
+        stderr=stderr or subprocess.PIPE)
+    if stderr is not None:
+        return proc
+    out, err = await asyncio.wait_for(proc.communicate(), 300)
+    if proc.returncode != 0:
+        raise AssertionError(f"{tool} {' '.join(argv)} exited {proc.returncode}:\n"
+                             f"{out.decode()[-2000:]}{err.decode()[-2000:]}")
+    return out.decode()
+
+
+def window_counts(name: str, counts: tuple) -> tuple:
+    print(f"  {name} window, summed over the OSD processes: EncodeService launches "
+          f"{counts[0]}, objects {counts[1]}, B1 wrapper launches {counts[2]}, pushes "
+          f"{counts[3]}", flush=True)
+    if counts[0] < 1 or counts[2] < 1:
+        raise AssertionError(f"B1 did not launch in the {name} window: {counts}")
+    return counts
+
+
+async def dataset_window(v, c, smi: str) -> dict:
+    """Ingest, data_tool verify, and one epoch read as FLEET_HOSTS hosts with
+    and without the prefetch pipeline, every record checked."""
+    from ceph_tpu_torch.data import DataStore
+
+    t = time.perf_counter()
+    tokens = ds_tokens()
+    nbytes = tokens.nbytes
+    if sorted(np.concatenate(ds_host_ids()).tolist()) != list(range(DS_RECORDS)):
+        raise AssertionError("the hosts' record ids do not partition the dataset")
+    print(f"  {DS_RECORDS} records of {DS_TOKENS} uint16 tokens ({nbytes} B) made in "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    before = await c.counts()
+    store = DataStore(c.rados.io_ctx(EC_POOL), DS_NAME)
+    t = time.perf_counter()
+    await store.ingest(list(tokens), ingest_id="owt-0")
+    ingest_s = time.perf_counter() - t
+    ingest_counts = c.delta(before, await c.counts())
+    perf = store.perf_dump()
+    out = {"ingest_gbps": nbytes / ingest_s / 1e9, "ingest_s": ingest_s}
+    print(f"  [{smi}] ingest into pool {EC_POOL}: {ingest_s:.3f} s, {out['ingest_gbps']:.4f} "
+          f"GB/s, {DS_RECORDS / ingest_s:.1f} records/s, {perf['ingest_shards']} shards; B1 "
+          f"over the ingest (EncodeService launches, wrapper launches) "
+          f"{ingest_counts[0]}, {ingest_counts[2]}", flush=True)
+    t = time.perf_counter()
+    verify = json.loads(await port_tool(v, "data_tool", "verify", DS_NAME))
+    if verify["record_count"] != DS_RECORDS:
+        raise AssertionError(f"data_tool verify counted {verify['record_count']} records")
+    print(f"  data_tool verify (its own process): {verify['record_count']} records in "
+          f"{len(verify['shards'])} shards crc-clean, {time.perf_counter() - t:.3f} s",
+          flush=True)
+
+    for label, prefetch in (("with prefetch", True), ("prefetch 0", False)):
+        jobs = [(v.spec_path, h, prefetch) for h in range(FLEET_HOSTS)]
+        t = time.perf_counter()
+        res = await asyncio.to_thread(in_workers, "_ds_host", jobs)
+        wall = time.perf_counter() - t
+        secs = max(r["window"][1] for r in res) - min(r["window"][0] for r in res)
+        read = sum(r["records"] for r in res)
+        hits = sum(r["perf"]["cache_hit_blocks"] for r in res)
+        fetched = sum(r["perf"]["cache_fetch_blocks"] for r in res)
+        rate = hits / max(hits + fetched, 1)
+        key = "read" if prefetch else "read_noprefetch"
+        out[key] = {"gbps": read * DS_TOKENS * 2 / secs / 1e9, "s": secs, "records": read,
+                    "records_per_s": read / secs, "hit_rate": rate,
+                    "fetch_bytes": sum(r["perf"]["fetch_bytes"] for r in res)}
+        cut = "" if prefetch else f" (cut to {DS_NOPREFETCH_BATCHES} batches a host)"
+        print(f"  [{smi}] epoch read by {FLEET_HOSTS} host processes at batch {DS_BATCH}, "
+              f"{label}: {secs:.3f} s from the first batch asked to the last{cut} "
+              f"({wall:.3f} s with the processes' start), {out[key]['gbps']:.4f} GB/s, "
+              f"{out[key]['records_per_s']:.1f} records/s, {out[key]['fetch_bytes']} B "
+              f"fetched, block cache {hits} hits / {fetched} fetches (hit rate {rate:.4f}); "
+              f"every record equal to its source at the ids epoch_permutation and "
+              f"host_slice give", flush=True)
+    out["prefetch_speedup"] = out["read"]["records_per_s"] / out["read_noprefetch"]["records_per_s"]
+    print(f"  prefetch speedup (records/s): {out['prefetch_speedup']:.3f}", flush=True)
+    out["launches"] = window_counts("dataset", c.delta(before, await c.counts()))
+    return out
+
+
+def check_mesh_tree(label: str, got: dict, tree: dict, slots: int) -> int:
+    """Every restored MeshArray slot equal to its slab of the source; returns
+    the leaves laid out in `slots` distinct slabs."""
+    if set(got) != set(tree):
+        raise AssertionError(f"{label}: the restored tree has other leaves")
+    split = 0
+    for name, src in tree.items():
+        out = got[name]
+        if len(out.slots) != slots:
+            raise AssertionError(f"{label}: {name} on {len(out.slots)} slots")
+        for idx, block in out.slots:
+            if not torch.equal(block, src[idx]):
+                raise AssertionError(f"{label}: {name} slot {idx} differs")
+        slabs = {tuple(sl.indices(n) for sl, n in zip(idx, out.shape)) for idx, _b in out.slots}
+        split += len(slabs) == slots
+    return split
+
+
+async def fleet_save_window(v, c, smi: str) -> dict:
+    """FLEET_HOSTS in-process Fleet members save GPT-2 small's parameters
+    collectively from a fleet mesh on the card; restores onto the mesh, per
+    rank, and onto a smaller mesh after a member leaves."""
+    from ceph_tpu_torch.ckpt import CkptStore
+    from ceph_tpu_torch.coord import Fleet, FleetDriver
+    from ceph_tpu_torch.coord import mesh as coord_mesh
+
+    devices = ["cuda:0"] * FLEET_HOSTS
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 210)
+    tree = {n: torch.randn(s, generator=gen, device="cuda") * 0.02
+            for n, s in gpt2_shapes().items()}
+    nbytes = sum(4 * t.numel() for t in tree.values())
+    if nbytes != 4 * GPT2_PARAMS:
+        raise AssertionError(f"the GPT-2 small parameters hold {nbytes} B")
+    mesh = coord_mesh.fleet_mesh(FLEET_HOSTS, devices=devices)
+    sharded = coord_mesh.shard_tree(tree, mesh)
+    torch.cuda.synchronize()
+    n_split = sum(bool(a.spec) for a in sharded.values())
+    print(f"  GPT-2 small's {len(tree)} float32 tensors ({nbytes} B) on a {FLEET_HOSTS}-slot "
+          f"fleet mesh of the card: {n_split} sharded on `fleet`, {len(tree) - n_split} "
+          f"replicated (wte's {GPT2['vocab']} rows among them)", flush=True)
+    clients = [v.client(f"client.fleet{i}") for i in range(FLEET_HOSTS)]
+    fleets, drivers = [], []
+    for i, r in enumerate(clients):
+        await r.connect()
+        for key, value in CKPT_CONFIG.items():
+            r.objecter.config.set(key, value)
+        io = r.io_ctx(EC_POOL)
+        fleets.append(Fleet(io, FLEET_NAME, f"host-{i}"))
+        drivers.append(FleetDriver(fleets[-1], ckpt=CkptStore(io, FLEET_NAME), devices=devices))
+    for f in fleets:
+        await f.join()
+    if not await fleets[0].elect():
+        raise AssertionError("host-0 did not take the vacant leader seat")
+    out = {"bytes": nbytes}
+    before = await c.counts()
+    t = time.perf_counter()
+    handles = [await d.save_async(sharded, save_id="fleet-0", timeout=600) for d in drivers]
+    sids = await asyncio.gather(*(h.wait() for h in handles))
+    save_s = time.perf_counter() - t
+    if set(sids) != {"fleet-0"} or [h.leader for h in handles].count(True) != 1:
+        raise AssertionError(f"not one collective save: {sids}")
+    save_counts = c.delta(before, await c.counts())
+    shares = [d.ckpt.perf_dump()["save_prepared_bytes"] / nbytes for d in drivers]
+    out.update(save_gbps=nbytes / save_s / 1e9, save_s=save_s, shares=shares)
+    print(f"  [{smi}] collective save_async by {FLEET_HOSTS} ranks: {save_s:.3f} s, "
+          f"{out['save_gbps']:.4f} GB/s; each rank's save_prepared_bytes as a share of the "
+          f"tree: {[round(x, 4) for x in shares]}; B1 over the save (EncodeService, wrapper) "
+          f"{save_counts[0]}, {save_counts[2]}", flush=True)
+
+    t = time.perf_counter()
+    back = await drivers[1].restore_mesh()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    split = check_mesh_tree("restore_mesh", back, tree, FLEET_HOSTS)
+    del back
+    out["restore_mesh_gbps"] = nbytes / secs / 1e9
+    msg = [f"restore_mesh on {FLEET_HOSTS} slots {secs:.3f} s "
+           f"({out['restore_mesh_gbps']:.4f} GB/s, {split} leaves in {FLEET_HOSTS} slabs)"]
+    t = time.perf_counter()
+    fetched = 0
+    for rank, d in enumerate(drivers):
+        shards = await d.restore_rank_shards()
+        for key, (block, idx) in shards.items():
+            if not torch.equal(torch.from_numpy(block.copy()).cuda(), tree[key][idx]):
+                raise AssertionError(f"rank {rank}: {key} slab {idx} differs")
+            fetched += block.nbytes
+        if set(shards) != set(tree):
+            raise AssertionError(f"rank {rank} restored other leaves")
+    secs = time.perf_counter() - t
+    out["rank_shards_gbps"] = fetched / secs / 1e9
+    msg.append(f"restore_rank_shards of the {FLEET_HOSTS} ranks {secs:.3f} s ({fetched} B, "
+               f"{out['rank_shards_gbps']:.4f} GB/s)")
+    await fleets[-1].leave()
+    t = time.perf_counter()
+    back = await drivers[0].restore_mesh()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    split = check_mesh_tree("elastic restore_mesh", back, tree, FLEET_HOSTS - 1)
+    del back
+    out["elastic_gbps"] = nbytes / secs / 1e9
+    msg.append(f"after host-{FLEET_HOSTS - 1} left, restore_mesh on {FLEET_HOSTS - 1} slots "
+               f"{secs:.3f} s ({out['elastic_gbps']:.4f} GB/s, {split} leaves in "
+               f"{FLEET_HOSTS - 1} slabs)")
+    print(f"  [{smi}] " + "; ".join(msg) + "; every leaf and slab equal to its source",
+          flush=True)
+    for f in fleets[:-1]:
+        await f.leave()
+    for r in clients:
+        await r.shutdown()
+    out["launches"] = window_counts("fleet-parallel save", c.delta(before, await c.counts()))
+    return out
+
+
+async def failover_window(v, c, smi: str) -> dict:
+    """tests/test_fleet_live.py on the card: 3 fleet_tool worker processes,
+    the leader SIGKILLed mid-save, the survivors' exact resume."""
+    from ceph_tpu_torch.ckpt import CkptStore
+    from ceph_tpu_torch.data import DataStore
+    from ceph_tpu_torch.tools.fleet_tool import _tree
+
+    records = [f"rec-{i:04d}".encode() for i in range(FO_RECORDS)]
+    io = c.rados.io_ctx(EC_POOL)
+    before = await c.counts()
+    await DataStore(io, "corpus").ingest(records, ingest_id="corpus-0")
+    shape = ["--seed", str(FO_SEED), "--batch", str(FO_BATCH), "--pre-steps", str(FO_PRE),
+             "--mid-steps", str(FO_MID), "--lease", str(FO_LEASE), "--timeout", "120",
+             "--quorum", "3", "worker", "train"]
+    t0 = time.perf_counter()
+    logs = [open(os.path.join(v.spec.run_dir, f"worker.{h}.log"), "wb+")
+            for h in ("host-a", "host-b", "host-c")]
+    procs = [await port_tool(v, "fleet_tool", "--host-id", "host-a", "--role", "victim", *shape,
+                             stderr=logs[0])]
+    procs += [await port_tool(v, "fleet_tool", "--host-id", h, *shape, stderr=log)
+              for h, log in (("host-b", logs[1]), ("host-c", logs[2]))]
+
+    def log_tail(i: int) -> str:
+        logs[i].seek(0)
+        return logs[i].read().decode(errors="replace")[-2000:]
+    stamped: dict[int, list] = {1: [], 2: []}
+
+    async def follow(i):
+        while True:
+            line = await procs[i].stdout.readline()
+            if not line:
+                return
+            stamped[i].append((time.perf_counter(), json.loads(line)))
+
+    try:
+        victim_events = []
+        while not victim_events or victim_events[-1]["event"] != "mid_save":
+            line = await asyncio.wait_for(procs[0].stdout.readline(), 300)
+            if not line:
+                raise AssertionError(f"the victim exited before mid_save:\n{log_tail(0)}")
+            victim_events.append(json.loads(line))
+        apps = smi_query("--query-compute-apps=pid,used_memory", "--format=csv,noheader")
+        print(f"  3 worker processes on the card, {time.perf_counter() - t0:.3f} s to the "
+              f"victim's mid-save; nvidia-smi compute apps ({len(apps.splitlines())}): "
+              f"{'; '.join(apps.splitlines())}", flush=True)
+        followers = [asyncio.ensure_future(follow(i)) for i in (1, 2)]
+        procs[0].send_signal(signal.SIGKILL)
+        t_kill = time.perf_counter()
+        await procs[0].wait()
+        await asyncio.wait_for(asyncio.gather(*followers), 300)
+        for i in (1, 2):
+            await procs[i].wait()
+            if procs[i].returncode != 0:
+                raise AssertionError(f"survivor {i} exited {procs[i].returncode}:\n"
+                                     f"{log_tail(i)}")
+    finally:
+        for p in procs:
+            if p.returncode is None:
+                p.kill()
+                await p.wait()
+        for log in logs:
+            log.close()
+    sb, sc = ([e for _t, e in stamped[i]] for i in (1, 2))
+    (rb,), (rc,) = ([e for e in ev if e["event"] == "resumed"] for ev in (sb, sc))
+    if rb["head"] != rc["head"] or rb["live"] != ["host-b", "host-c"]:
+        raise AssertionError(f"the survivors disagree: {rb} {rc}")
+    (commit,) = [e for e in victim_events if e["event"] == "commit"]
+    acked_steps = FO_PRE if rb["head"] == commit["save_id"] else FO_PRE + FO_MID
+    if (rb["position"], rb["base"], rb["w_sum"]) != (0, acked_steps * FO_BATCH * 3,
+                                                       32.0 * acked_steps):
+        raise AssertionError(f"the resumed cursor or model is not HEAD's: {rb}")
+    acked = [i for ev in (victim_events, sb, sc) for e in ev
+             if e["event"] == "batch" and e["step"] < acked_steps for i in e["ids"]]
+    resumed = [i for ev in (sb, sc) for e in ev if e["event"] == "rbatch" for i in e["ids"]]
+    dups = len(acked) + len(resumed) - len(set(acked + resumed))
+    missing = len({r.decode() for r in records} - set(acked + resumed))
+    if dups or missing:
+        raise AssertionError(f"{dups} records twice, {missing} missing after the failover")
+    finals = [e for ev in (sb, sc) for e in ev if e["event"] == "final_commit"]
+    if len(finals) != 1:
+        raise AssertionError(f"{len(finals)} final commits")
+    resume_s = min(t for i in (1, 2) for t, e in stamped[i] if e["event"] == "resumed") - t_kill
+    head = await CkptStore(io, "model").head()
+    restored = await CkptStore(io, "model").restore(device="cuda")
+    step = FO_PRE + FO_MID
+    want = _tree(step)
+    if head["save_id"] != finals[0]["save_id"] or any(
+            not np.array_equal(restored[k].cpu().numpy(), want[k]) for k in want):
+        raise AssertionError("the final HEAD is not _tree(step)")
+    status = json.loads(await port_tool(v, "fleet_tool", "status", "train"))
+    print(f"  [{smi}] leader SIGKILLed mid-save; survivors resumed from HEAD {rb['head']} "
+          f"(acked steps {acked_steps}) {resume_s:.3f} s after the kill "
+          f"({resume_s / FO_LEASE:.2f} lease periods of {FO_LEASE} s): {len(acked)} acked + "
+          f"{len(resumed)} resumed records, 0 twice, 0 missing; final commit "
+          f"{finals[0]['save_id']} by {finals[0]['host']} equals _tree({step}); whole window "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    print(f"  fleet_tool status train: {json.dumps(status, sort_keys=True)}", flush=True)
+    if status["leader"] is not None or status["members"]:
+        raise AssertionError(f"the fleet did not end empty: {status}")
+    return {"resume_s": resume_s, "lease_periods": resume_s / FO_LEASE,
+            "launches": window_counts("failover", c.delta(before, await c.counts()))}
+
+
+async def fleet_sequence(v, smi: str) -> dict:
+    """Phase 21's three windows on phase 20's running cluster."""
+    t0 = time.perf_counter()
+    rados = v.client("client.fleetadmin")
+    await rados.connect()
+    c = MPCluster(v, rados)
+    out = {}
+    try:
+        out["dataset"] = await dataset_window(v, c, smi)
+        out["save"] = await fleet_save_window(v, c, smi)
+        out["failover"] = await failover_window(v, c, smi)
+    finally:
+        await rados.shutdown()
+    out["s"] = time.perf_counter() - t0
+    out["launches"] = sum(w["launches"][2] for w in (out["dataset"], out["save"],
+                                                    out["failover"]))
+    print(f"  phase 21 took {out['s']:.3f} s; B1 wrapper launches in its windows "
+          f"{out['launches']}", flush=True)
+    return out
 
 
 def main() -> int:
@@ -3834,18 +4238,18 @@ def main() -> int:
     print("phase 20: the multi-process cluster (VStart: a process per daemon) on the card",
           flush=True)
     mp = phase_multiprocess(factory, decompile_crushmap, smi)
-    print(f"  B1 launches in the OSD processes (their wrappers' counts): {mp['launches']}",
-          flush=True)
+    print(f"  B1 launches in the OSD processes (their wrappers' counts): phase 20 "
+          f"{mp['launches']}, phase 21 {mp['fleet']['launches']}", flush=True)
     phase_multiprocess_bench(smi)
 
-    print("phase 21: processes left", flush=True)
+    print("phase 22: processes left", flush=True)
 
     kernels = [{
         "name": "gf_matmul_packed",
         "route": "cuda",
         "source": "ceph_tpu_torch/csrc/gf_matmul.cu",
         "replaces": "ceph_tpu/ops/gf_pallas.py:141",
-        "launches": launches + daemon["launches"] + mp["launches"],
+        "launches": launches + daemon["launches"] + mp["launches"] + mp["fleet"]["launches"],
         "max_abs_err": max_err,
         "ms": times["ms"],
         "held_ms": times["held_ms"],
@@ -3926,7 +4330,7 @@ def main() -> int:
     if left:
         raise AssertionError(f"processes still running: {left}")
     print("  none", flush=True)
-    print("phase 22: kernels and the result", flush=True)
+    print("phase 23: kernels and the result", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

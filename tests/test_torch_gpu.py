@@ -222,3 +222,58 @@ def test_multiprocess_cluster_on_card(tmp_path):
         rcs = v.stop(signal.SIGTERM)
     assert sum(c[0] for c in counts) > 0 and sum(c[1] for c in counts) > 0, counts
     assert set(rcs.values()) == {0}, rcs
+
+
+@pytest.mark.gpu
+def test_fleet_parallel_save_and_mesh_restore_on_card():
+    """Three Fleet members on an in-process cluster on the card save one
+    tree collectively from a [cuda:0] * 3 fleet mesh (each rank putting only
+    its slabs into the k2m2 pool, encoded by B1), then restore_mesh onto the
+    same mesh: every slot equal to its slab of the source."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on one)")
+    import asyncio
+
+    from ceph_tpu_torch.ckpt import CkptStore
+    from ceph_tpu_torch.coord import Fleet, FleetDriver
+    from ceph_tpu_torch.coord import mesh as coord_mesh
+    from ceph_tpu_torch.tools.bench_cluster import EC_POOL, BenchCluster
+
+    devices = ["cuda:0"] * 3
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    tree = {"w": torch.randn((192, 64), generator=gen, device="cuda"),
+            "emb": torch.randn((1001, 16), generator=gen, device="cuda"),
+            "b": torch.arange(48, dtype=torch.int32, device="cuda")}
+
+    async def main():
+        cluster = await BenchCluster("cuda").start()
+        clients, drivers = [], []
+        try:
+            for i in range(3):
+                clients.append(cluster.client(f"client.fleet{i}"))
+                await clients[-1].connect()
+                io = clients[-1].io_ctx(EC_POOL)
+                drivers.append(FleetDriver(Fleet(io, "gpu", f"host-{i}"),
+                                           ckpt=CkptStore(io, "gpu"), devices=devices))
+                await drivers[-1].fleet.join()
+            assert await drivers[0].fleet.elect()
+            sharded = coord_mesh.shard_tree(tree, coord_mesh.fleet_mesh(3, devices=devices))
+            launches = gc.gf_matmul_packed.launches
+            handles = [await d.save_async(sharded, save_id="g0", timeout=120) for d in drivers]
+            assert set(await asyncio.gather(*(h.wait() for h in handles))) == {"g0"}
+            launches = gc.gf_matmul_packed.launches - launches
+            back = await drivers[2].restore_mesh()
+            for d in drivers:
+                await d.fleet.leave()
+            return launches, back
+        finally:
+            for r in clients:
+                await r.shutdown()
+            await cluster.stop()
+
+    launches, back = asyncio.run(asyncio.wait_for(main(), 180))
+    assert launches > 0
+    for name, src in tree.items():
+        assert len(back[name].slots) == 3
+        for idx, block in back[name].slots:
+            assert block.device.type == "cuda" and torch.equal(block, src[idx]), name

@@ -50,7 +50,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "rados/client.py", "msg/messenger.py", "lint/racecheck.py",
                  "tools/daemon_bench.py", "vstart.py", "parallel/sharding.py",
                  "rados/striper.py", "ckpt/layout.py", "ckpt/writer.py", "ckpt/reader.py",
-                 "ckpt/store.py", "tools/ckpt_tool.py"):
+                 "ckpt/store.py", "tools/ckpt_tool.py", "data/layout.py", "data/reader.py",
+                 "data/writer.py", "data/store.py", "coord/lock.py", "coord/fleet.py",
+                 "coord/mesh.py", "coord/driver.py", "tools/data_tool.py",
+                 "tools/fleet_tool.py", "tools/bench_cluster.py"):
         assert os.path.join(REPO, "ceph_tpu_torch", *part.split("/")) in files
     bad = [
         (os.path.relpath(path, REPO), mod)
