@@ -272,22 +272,57 @@ def _spec_of(leaf):
     return out
 
 
-def np_dtype(dtype) -> np.dtype:
-    """The numpy dtype of a torch or numpy dtype (torch's bfloat16 has
-    none and raises)."""
+#: torch's bfloat16 has no numpy dtype. Its raw bits travel as int16, under
+#: the names ceph_tpu's numpy (ml_dtypes) gives the type: '<V2' in a
+#: checkpoint manifest (np.dtype(ml_dtypes.bfloat16).str) and "bfloat16" in
+#: a dataset schema (str(np.dtype(ml_dtypes.bfloat16))). Both restore as
+#: torch.bfloat16, bit for bit.
+BF16_MANIFEST = "<V2"
+BF16_SCHEMA = "bfloat16"
+
+
+def dtype_str(dtype) -> str:
+    """A torch or numpy dtype as a manifest records it (numpy's `.str`;
+    '<V2' for bfloat16, as ceph_tpu writes it)."""
+    if dtype is torch.bfloat16:
+        return BF16_MANIFEST
     if isinstance(dtype, torch.dtype):
-        return torch.empty((), dtype=dtype).numpy().dtype
-    return np.dtype(dtype)
+        return torch.empty((), dtype=dtype).numpy().dtype.str
+    return np.dtype(dtype).str
+
+
+def is_bf16(leaf) -> bool:
+    """True for a bfloat16 tensor or MeshArray."""
+    return getattr(leaf, "dtype", None) is torch.bfloat16
 
 
 def host_array(leaf) -> np.ndarray:
     """A leaf's values on the host. A tensor on a card leaves it once (one
-    device-to-host copy); a MeshArray gathers each distinct slab once."""
+    device-to-host copy); a MeshArray gathers each distinct slab once. A
+    bfloat16 leaf gives its raw bits as int16 (`is_bf16` tells it apart)."""
     if isinstance(leaf, MeshArray):
         leaf = leaf.full("cpu")
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype is torch.bfloat16:
+            leaf = leaf.view(torch.int16)
+        return leaf.numpy()
     return np.asarray(leaf)
+
+
+def torch_dtype(dtype: str) -> torch.dtype:
+    """The torch dtype of a manifest dtype string ('<V2' is bfloat16)."""
+    if dtype == BF16_MANIFEST:
+        return torch.bfloat16
+    return torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
+
+
+def to_tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    """A host array read back from a manifest entry of `dtype` as a tensor
+    sharing its memory: a '<V2' (bfloat16) array's bits as torch.bfloat16."""
+    if dtype == BF16_MANIFEST:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _sorted_dicts(tree):
@@ -320,7 +355,7 @@ def flatten_tree(tree) -> list[dict]:
         arr = np.asarray(leaf) if np.isscalar(leaf) else leaf
         records.append({
             "path": _path_entries(path),
-            "dtype": np_dtype(arr.dtype).str,
+            "dtype": dtype_str(arr.dtype),
             "shape": [int(d) for d in arr.shape],
             "spec": _spec_of(leaf),
             "leaf": leaf,

@@ -213,7 +213,7 @@ class CkptReader:
                 count=int(np.prod(a["shape"], dtype=np.int64)),
                 offset=a["offset"],
             ).reshape(a["shape"]).copy()
-            records.append((a["path"], torch.from_numpy(arr).to(device)))
+            records.append((a["path"], layout.to_tensor(arr, a["dtype"]).to(device)))
             if self.perf is not None:
                 self.perf.inc("restore_bytes", a["nbytes"])
         return layout.unflatten(records)
@@ -304,7 +304,7 @@ class CkptReader:
         for a in manifest["arrays"]:
             if "/".join(str(e[1]) for e in a["path"]) == path_key:
                 block = await self.fetch_block(manifest, a, idx)
-                return torch.from_numpy(block.copy()).to(device)
+                return layout.to_tensor(block.copy(), a["dtype"]).to(device)
         raise KeyError(path_key)
 
     async def _restore_sharded(self, manifest: dict, mesh):
@@ -336,10 +336,10 @@ class CkptReader:
             for idx, dev in zip(idxs, devices):
                 key = (_slab_key(idx, shape), dev)
                 if key not in placed:
-                    placed[key] = torch.from_numpy(
-                        blocks[key[0]].copy()).to(dev)
+                    placed[key] = layout.to_tensor(
+                        blocks[key[0]].copy(), a["dtype"]).to(dev)
                 slots.append((idx, placed[key]))
-            dtype = torch.from_numpy(np.empty(0, np.dtype(a["dtype"]))).dtype
+            dtype = layout.torch_dtype(a["dtype"])
             return MeshArray(shape, dtype, spec, mesh, slots)
 
         arrays = await asyncio.gather(

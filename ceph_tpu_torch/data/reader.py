@@ -39,7 +39,9 @@ import json
 from collections import OrderedDict, deque
 
 import numpy as np
+import torch
 
+from ceph_tpu_torch.ckpt.layout import BF16_SCHEMA
 from ceph_tpu_torch.common.op_queue import QOS_DATA_PREFETCH
 from ceph_tpu_torch.data import layout
 from ceph_tpu_torch.parallel.sharding import host_slice
@@ -471,12 +473,16 @@ class DataIterator:
             assert all(p is not None for p in payloads)
             if self._schema is None:
                 return payloads
-            dtype = np.dtype(self._schema["dtype"])
+            bf16 = self._schema["dtype"] == BF16_SCHEMA
+            dtype = np.dtype(np.int16 if bf16 else self._schema["dtype"])
             shape = tuple(self._schema["shape"])
-            return np.stack([
+            batch = np.stack([
                 np.frombuffer(p, dtype=dtype).reshape(shape)
                 for p in payloads
             ])
+            # numpy has no bfloat16: such records come back as the raw
+            # bits viewed as a torch.bfloat16 tensor
+            return torch.from_numpy(batch).view(torch.bfloat16) if bf16 else batch
         finally:
             if child is not None:
                 child.finish()

@@ -26,7 +26,7 @@ import asyncio
 import json
 import uuid
 
-from ceph_tpu_torch.ckpt.layout import host_array
+from ceph_tpu_torch.ckpt.layout import BF16_SCHEMA, host_array, is_bf16
 from ceph_tpu_torch.common.compressor import factory as compressor_factory
 from ceph_tpu_torch.data import layout
 from ceph_tpu_torch.rados.client import ObjectNotFound, RadosError
@@ -78,8 +78,9 @@ class DataWriter:
                     raise ValueError("mixed tensor/bytes records")
                 payloads.append(bytes(rec))
                 continue
-            arr = host_array(rec)
-            sch = {"dtype": str(arr.dtype), "shape": list(arr.shape)}
+            arr = host_array(rec)  # a bfloat16 record: its raw bits as int16
+            sch = {"dtype": BF16_SCHEMA if is_bf16(rec) else str(arr.dtype),
+                   "shape": list(arr.shape)}
             if i == 0:
                 schema = sch
             elif schema != sch:

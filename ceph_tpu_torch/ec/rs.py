@@ -13,7 +13,7 @@ signature — the analogue of the reference's LRU decoding-table cache
 
 Each codec lives on one device (`device`, default cuda). Its coding matrices
 are kept on the host and, once per matrix, as tensors on that device: the
-bit-plane matrix, the packed matrix and the kernel's split-nibble tables.
+bit-plane matrix, the packed matrix and the kernel's byte-permute tables.
 
 Parameter envelopes mirror the reference:
   * w=8 only (the GF(2^8) field; jerasure also offers w=16/32, which change the
@@ -58,7 +58,7 @@ class CodingTables:
     """One coding matrix in every form the codec uses: host arrays (the
     (8r, 8k) int8 bit-matrix and its (32r, 32k) packed expansion) and the
     tensors derived from them on the codec's device (bit-matrix, packed
-    matrix, and the (r, k, 32) split-nibble tables of the CUDA kernel)."""
+    matrix, and the (r, k, 32) byte-permute tables of the CUDA kernel)."""
 
     bits: np.ndarray
     packed: np.ndarray
@@ -75,7 +75,7 @@ class CodingTables:
             packed=packed,
             bits_t=torch.from_numpy(bits).to(device),
             packed_t=torch.from_numpy(packed).to(device),
-            tables_t=torch.from_numpy(gc.nibble_tables(bits)).to(device),
+            tables_t=gc.device_tables(gc.kernel_tables(bits), device),
         )
 
 

@@ -7,7 +7,7 @@ wrapper over a hand-written CUDA kernel with a plain torch version beside it:
   * `gf_matmul_bitplane(bitmat, data, tables=...)`: (8r, 8k) {0,1}
     bit-matrix x (B, k, L) uint8 -> (B, r, L). A CUDA tensor launches
     csrc/gf_matmul.cu's byte entry point, which looks bytes up in the
-    split-nibble tables of `gf_cuda.nibble_tables` (exact for any GF(2)-linear
+    byte-permute tables of `gf_cuda.kernel_tables` (exact for any GF(2)-linear
     byte map, so also for bit-matrices that are not images of GF(2^8)
     matrices; the codecs keep them in `ec.rs.CodingTables`); a CPU tensor
     runs `gf_matmul_bitplane_plain`.
@@ -93,14 +93,15 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
 
 
 def _check_matmul(bitmat, data) -> tuple[int, int]:
-    if not isinstance(bitmat, torch.Tensor) or not isinstance(data, torch.Tensor):
+    if not (gc._is_tensor(bitmat) and gc._is_tensor(data)):
         raise TypeError("gf_matmul_bitplane takes torch tensors")
-    if data.dtype != torch.uint8 or data.dim() != 3:
-        raise TypeError(f"data must be (B, k, L) uint8, got {tuple(data.shape)} {data.dtype}")
-    k = data.shape[1]
-    if bitmat.dim() != 2 or bitmat.shape[0] % 8 or bitmat.shape[1] != 8 * k:
-        raise ValueError(f"bit-matrix {tuple(bitmat.shape)} does not take k={k} chunks")
-    return bitmat.shape[0] // 8, k
+    dshape, bshape = data.shape, bitmat.shape  # each read once: see gf_cuda._check_shapes
+    if data.dtype != torch.uint8 or len(dshape) != 3:
+        raise TypeError(f"data must be (B, k, L) uint8, got {tuple(dshape)} {data.dtype}")
+    k = dshape[1]
+    if len(bshape) != 2 or bshape[0] % 8 or bshape[1] != 8 * k:
+        raise ValueError(f"bit-matrix {tuple(bshape)} does not take k={k} chunks")
+    return bshape[0] // 8, k
 
 
 def gf_matmul_bitplane_plain(bitmat: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
@@ -134,7 +135,7 @@ def gf_matmul_bitplane(
 
     A CPU `data` runs the plain version and ignores `tables`. A CUDA `data`
     launches the kernel with `tables`, bitmat's (r, k, 32) uint8
-    `gf_cuda.nibble_tables` on the same device (the codecs'
+    `gf_cuda.kernel_tables` on the same device (the codecs'
     `CodingTables.tables_t`); `data` may have any batch and row strides, its
     last axis contiguous. The launch goes on `stream` (default: the current
     stream); the output is allocated on the current stream, so a caller
@@ -143,33 +144,26 @@ def gf_matmul_bitplane(
     take. Each launch adds one to `gf_matmul_bitplane.launches`.
     """
     r, k = _check_matmul(bitmat, data)
-    if data.device.type == "cpu":
-        return gf_matmul_bitplane_plain(bitmat, data)
-    if data.device.type != "cuda":
+    if not data.is_cuda:
+        if data.device.type == "cpu":
+            return gf_matmul_bitplane_plain(bitmat, data)
         raise ValueError(f"gf_matmul_bitplane: unsupported device {data.device}")
     if r * k * 32 > gc.MAX_TABLE_BYTES:
         raise ValueError(
             f"gf_matmul_bitplane: r*k*32 = {r * k * 32} table bytes exceed the "
-            f"kernel's {gc.MAX_TABLE_BYTES} bytes of shared memory"
+            f"kernel's {gc.MAX_TABLE_BYTES}"
         )
-    if (tables.dtype != torch.uint8 or tuple(tables.shape) != (r, k, 32)
-            or tables.device != data.device or not tables.is_contiguous()):
-        raise ValueError(
-            f"tables must be contiguous ({r}, {k}, 32) uint8 on {data.device}, "
-            f"got {tuple(tables.shape)} {tables.dtype} on {tables.device}"
-        )
+    device = data.get_device()
+    host = gc.launch_tables(tables, r, k, device, "gf_matmul_bitplane")
     in_sb, in_sk = gc.row_strides(data, "gf_matmul_bitplane")
     batch, _, length = data.shape
-    out = torch.empty((batch, r, length), dtype=torch.uint8, device=data.device)
+    out = data.new_empty((batch, r, length))
     if batch == 0 or length == 0:
         return out
     lib = gc._lib()
-    with torch.cuda.device(data.device):
-        handle = (stream if stream is not None
-                  else torch.cuda.current_stream(data.device)).cuda_stream
-        err = lib.gf_matmul_bytes_launch(
-            tables.data_ptr(), data.data_ptr(), out.data_ptr(), k, r, batch,
-            length, in_sb, in_sk, handle)
+    args = (tables.data_ptr(), host, data.data_ptr(), out.data_ptr(), k, r, batch, length,
+            in_sb, in_sk)
+    err = gc.on_device(device, lib.gf_matmul_bytes_launch, *args, stream=stream)
     if err != 0:
         msg = lib.gf_cuda_error_string(err).decode()
         raise RuntimeError(f"gf_matmul_bitplane launch failed: CUDA error {err} ({msg})")

@@ -10,7 +10,7 @@ Port of ceph_tpu/ops/gf_pallas.py, with the same contract:
   * `gf_matmul_packed(packed_mat, words)` -> (r, N/4) int32 words.
 
 For a CUDA tensor the wrapper launches the hand-written kernel in
-csrc/gf_matmul.cu, which works from split-nibble tables (`nibble_tables`)
+csrc/gf_matmul.cu, which works from byte-permute tables (`kernel_tables`)
 derived once per matrix. For a CPU tensor it runs `gf_matmul_packed_plain`,
 a direct transcription of the Pallas kernel's arithmetic. Nothing else
 selects between them, and nothing falls back.
@@ -35,18 +35,20 @@ __all__ = [
     "available",
     "pack_matrix",
     "unpack_matrix",
-    "nibble_tables",
+    "kernel_tables",
     "bytes_to_words",
     "words_to_bytes",
     "gf_matmul_packed",
     "gf_matmul_packed_plain",
+    "device_tables",
+    "tables_to",
     "xor_reduce_words",
     "xor_reduce_words_plain",
     "launch_row_lists",
     "launch_xor_rows",
 ]
 
-#: the kernel stages r*k*32 table bytes in (non-opt-in) shared memory
+#: r*k*32 table bytes the kernel takes (csrc/gf_matmul.cu kMaxTableBytes)
 MAX_TABLE_BYTES = 48 * 1024
 
 #: the row-list kernel stages R + 1 row offsets and the selected rows, int32,
@@ -100,11 +102,19 @@ def unpack_matrix(packed: np.ndarray) -> np.ndarray:
     return bitmat
 
 
-def nibble_tables(bitmat: np.ndarray) -> np.ndarray:
-    """(8r, 8k) {0,1} bit-matrix -> (r, k, 32) uint8 split-nibble tables.
+#: the kernel's split of an input byte x into fields, each looked up in its
+#: own table of block (i, j): (first byte of the table, first bit, bits)
+TABLE_FIELDS = ((0, 0, 3), (8, 3, 3), (16, 6, 2))
 
-    Block (i, j) maps an input byte x to the output byte
-    T_lo[x & 15] ^ T_hi[x >> 4]; entries [0:16] are T_lo, [16:32] T_hi.
+
+def kernel_tables(bitmat: np.ndarray) -> np.ndarray:
+    """(8r, 8k) {0,1} bit-matrix -> (r, k, 32) uint8 tables of the kernel.
+
+    Block (i, j) is a GF(2)-linear map f on a byte, so f(x) is the XOR of
+    its values on x's fields: bits 0-2, 3-5 and 6-7. Bytes [0:8] hold
+    f(x) for x < 8, [8:16] f(x << 3), [16:20] f(x << 6); the rest is zero.
+    A byte permute looks up one 8-entry (or 4-entry) table at four bytes at
+    once, so f(x) = T[x & 7] ^ T[8 + ((x >> 3) & 7)] ^ T[16 + (x >> 6)].
     """
     bm = np.asarray(bitmat)
     if bm.ndim != 2 or bm.shape[0] % 8 or bm.shape[1] % 8:
@@ -115,12 +125,12 @@ def nibble_tables(bitmat: np.ndarray) -> np.ndarray:
     blocks = bm.astype(np.int64).reshape(r, 8, k, 8)  # (i, bo, j, bi)
     weights = (1 << np.arange(8)).reshape(1, 8, 1, 1)
     image = (blocks * weights).sum(axis=1)  # (i, j, bi): output byte of bit bi
-    x = np.arange(16)
     tables = np.zeros((r, k, 32), dtype=np.int64)
-    for b in range(4):
-        has = ((x >> b) & 1)[None, None, :]
-        tables[..., :16] ^= has * image[..., b : b + 1]
-        tables[..., 16:] ^= has * image[..., 4 + b : 5 + b]
+    for start, first, width in TABLE_FIELDS:
+        x = np.arange(1 << width)
+        for b in range(width):
+            has = ((x >> b) & 1)[None, None, :]
+            tables[..., start:start + len(x)] ^= has * image[..., first + b : first + b + 1]
     return tables.astype(np.uint8)
 
 
@@ -137,16 +147,25 @@ def words_to_bytes(words: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(words, dtype="<i4").view(np.uint8)
 
 
+def _is_tensor(x) -> bool:
+    """isinstance(x, torch.Tensor), with the exact type tried first (the
+    isinstance check goes through torch's metaclass, slow on a busy host)."""
+    return type(x) is torch.Tensor or isinstance(x, torch.Tensor)
+
+
 def _check_shapes(packed_mat: torch.Tensor, words: torch.Tensor) -> tuple[int, int]:
-    if not isinstance(packed_mat, torch.Tensor) or not isinstance(words, torch.Tensor):
+    # each .shape read costs a fraction of a microsecond: at one object's
+    # width the checks are a fair part of a call, so each is read once
+    if not (_is_tensor(packed_mat) and _is_tensor(words)):
         raise TypeError("gf_matmul_packed takes torch tensors")
-    if packed_mat.dim() != 2 or packed_mat.shape[0] % 32 or packed_mat.shape[1] % 32:
-        raise ValueError(f"packed matrix shape {tuple(packed_mat.shape)} must be (32r, 32k)")
-    r, k = packed_mat.shape[0] // 32, packed_mat.shape[1] // 32
-    if words.dim() != 2 or words.dtype != torch.int32:
-        raise TypeError(f"words must be (k, N4) int32, got {tuple(words.shape)} {words.dtype}")
-    if words.shape[0] != k:
-        raise ValueError(f"words rows {words.shape[0]} != matrix k {k}")
+    pshape, wshape = packed_mat.shape, words.shape
+    if len(pshape) != 2 or pshape[0] % 32 or pshape[1] % 32:
+        raise ValueError(f"packed matrix shape {tuple(pshape)} must be (32r, 32k)")
+    r, k = pshape[0] // 32, pshape[1] // 32
+    if len(wshape) != 2 or words.dtype != torch.int32:
+        raise TypeError(f"words must be (k, N4) int32, got {tuple(wshape)} {words.dtype}")
+    if wshape[0] != k:
+        raise ValueError(f"words rows {wshape[0]} != matrix k {k}")
     return r, k
 
 
@@ -187,17 +206,92 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("gf_matmul")
     fn = lib.gf_matmul_packed_launch
     if fn.argtypes is None:
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_long, ctypes.c_void_p,
-        ]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+        fn.argtypes = [p, p, p, p, i, i, ll, p]
         fn.restype = ctypes.c_int
         lib.gf_cuda_error_string.argtypes = [ctypes.c_int]
         lib.gf_cuda_error_string.restype = ctypes.c_char_p
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-        lib.gf_matmul_bytes_launch.argtypes = [p, p, p, i, i, ll, ll, ll, ll, p]
+        lib.gf_matmul_bytes_launch.argtypes = [p, p, p, p, i, i, ll, ll, ll, ll, p]
         lib.gf_matmul_bytes_launch.restype = ctypes.c_int
+        lib.gf_matmul_plan.argtypes = [ll, p, p]
+        lib.gf_matmul_plan.restype = ctypes.c_int
     return lib
+
+
+def device_tables(host: np.ndarray, device) -> torch.Tensor:
+    """(r, k, 32) uint8 kernel tables on `device`, with their host bytes kept
+    beside them, so that the kernel's launches never read them back."""
+    host = np.ascontiguousarray(host, dtype=np.uint8)
+    out = torch.from_numpy(host).to(device)
+    if out.device.type == "cuda":
+        out._gf_host = (out._version, host)
+    return out
+
+
+def tables_to(tables: torch.Tensor, device) -> torch.Tensor:
+    """`tables` on `device` (itself when it is there already), the host
+    bytes kept beside a copy as `device_tables` keeps them."""
+    out = tables.to(device)
+    host = getattr(tables, "_gf_host", None)
+    if out is not tables and host is not None and host[0] == tables._version:
+        out._gf_host = (out._version, host[1])
+    return out
+
+
+def _checked_tables(tables, what: str) -> tuple:
+    """(version, r, k, device index, host address, host bytes) of a CUDA
+    tables tensor, after the checks the launcher relies on. The host bytes
+    are those `device_tables` kept, else one read of the tensor."""
+    if (not isinstance(tables, torch.Tensor) or tables.dtype != torch.uint8
+            or tables.dim() != 3 or tables.shape[2] != 32 or not tables.is_cuda
+            or not tables.is_contiguous() or tables.data_ptr() % 16):
+        raise ValueError(
+            f"{what}: tables must be contiguous 16-byte-aligned (r, k, 32) uint8 on "
+            f"a CUDA device, got {getattr(tables, 'shape', None)} "
+            f"{getattr(tables, 'dtype', None)} on {getattr(tables, 'device', None)}")
+    version = tables._version
+    host = getattr(tables, "_gf_host", None)
+    host = host[1] if host is not None and host[0] == version else tables.cpu().numpy()
+    r, k, _ = tables.shape
+    return (version, r, k, tables.get_device(), host.ctypes.data, host)
+
+
+def launch_tables(tables, r: int, k: int, device: int, what: str) -> int:
+    """Host address of the bytes of `tables`, the (r, k, 32) kernel tables on
+    CUDA device `device`, for the launcher's parameter route. The checks run
+    once per tensor (and again after an in-place change); a call after that
+    compares four integers."""
+    memo = getattr(tables, "_gf_launch", None)
+    if memo is None or memo[0] != tables._version:
+        memo = _checked_tables(tables, what)
+        tables._gf_launch = memo
+    if memo[1] != r or memo[2] != k or memo[3] != device:
+        raise ValueError(
+            f"{what}: tables must be ({r}, {k}, 32) on cuda:{device}, got "
+            f"({memo[1]}, {memo[2]}, 32) on cuda:{memo[3]}")
+    return memo[4]
+
+
+def launch_plan(work: int) -> tuple[int, int]:
+    """(threads per block, blocks) the kernel's launcher picks on the current
+    CUDA device for `work` 16-byte groups (csrc/gf_matmul.cu plan_for)."""
+    threads, blocks = ctypes.c_int(), ctypes.c_long()
+    err = _lib().gf_matmul_plan(work, ctypes.addressof(threads), ctypes.addressof(blocks))
+    if err != 0:
+        raise RuntimeError(f"gf_matmul_plan failed: CUDA error {err}")
+    return threads.value, blocks.value
+
+
+def on_device(device: int, fn, *args, stream: torch.cuda.Stream | None = None) -> int:
+    """fn(*args, stream handle): a launcher called with the raw handle of
+    `stream` (default: CUDA device `device`'s current stream), `device` made
+    current first only when it is not already (the host path of a launch at
+    one object's width is a fair part of its call)."""
+    if device != torch._C._cuda_getDevice():
+        with torch.cuda.device(device):
+            return on_device(device, fn, *args, stream=stream)
+    handle = torch._C._cuda_getCurrentRawStream(device) if stream is None else stream.cuda_stream
+    return fn(*args, handle)
 
 
 def _xor_lib() -> ctypes.CDLL:
@@ -258,17 +352,11 @@ def launch_row_lists(lists: torch.Tensor, rows_out: int, data: torch.Tensor,
 
 def _xor_rows(data: torch.Tensor, out: torch.Tensor, k: int, batch: int, length: int,
               in_sb: int, in_sc: int, what: str) -> None:
-    """Launches `xor_rows_launch` on data's device and its current stream.
-    The host path is kept short, since at the m=1 shapes it is a fair part
-    of a call: the raw stream handle, and a device switch only when data
-    lies on another device than the current one."""
-    idx = data.get_device()
-    if idx != torch.cuda.current_device():
-        with torch.cuda.device(idx):
-            return _xor_rows(data, out, k, batch, length, in_sb, in_sc, what)
+    """Launches `xor_rows_launch` on data's device and its current stream
+    (`on_device`: at the m=1 shapes the host path is a fair part of a call)."""
     lib = _xor_lib()
-    err = lib.xor_rows_launch(data.data_ptr(), out.data_ptr(), k, batch, length, in_sb, in_sc,
-                              torch._C._cuda_getCurrentRawStream(idx))
+    err = on_device(data.get_device(), lib.xor_rows_launch, data.data_ptr(), out.data_ptr(),
+                    k, batch, length, in_sb, in_sc)
     if err != 0:
         msg = lib.xor_rowmatmul_error_string(err).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
@@ -291,11 +379,11 @@ def _tables_for(packed_mat: torch.Tensor, device: torch.device) -> torch.Tensor:
     """The kernel's tables for `packed_mat` on `device`: derived on first use
     (one read of the matrix back to the host) and memoised on the tensor
     until it is modified in place."""
-    memo = getattr(packed_mat, "_gf_nibble_tables", None)
+    memo = getattr(packed_mat, "_gf_kernel_tables", None)
     if memo is None or memo[0] != packed_mat._version or memo[1].device != device:
         bitmat = unpack_matrix(packed_mat.cpu().numpy())
-        memo = (packed_mat._version, torch.from_numpy(nibble_tables(bitmat)).to(device))
-        packed_mat._gf_nibble_tables = memo
+        memo = (packed_mat._version, device_tables(kernel_tables(bitmat), device))
+        packed_mat._gf_kernel_tables = memo
     return memo[1]
 
 
@@ -309,43 +397,35 @@ def gf_matmul_packed(
 
     A CPU `words` runs the plain version. A CUDA `words` launches the kernel
     on the current stream, with `tables` (r, k, 32) uint8 on the same device
-    when the caller has them cached (else they are derived from packed_mat
-    once and memoised on it), and raises on anything the kernel does not
-    take. Each launch adds one to
-    `gf_matmul_packed.launches`.
+    when the caller has them cached (the codecs' `CodingTables.tables_t`,
+    made by `device_tables`; else they are derived from packed_mat once and
+    memoised on it), and raises on anything the kernel does not take. Each
+    launch adds one to `gf_matmul_packed.launches`.
     """
     r, k = _check_shapes(packed_mat, words)
-    if words.device.type == "cpu":
-        return gf_matmul_packed_plain(packed_mat, words)
-    if words.device.type != "cuda":
+    if not words.is_cuda:
+        if words.device.type == "cpu":
+            return gf_matmul_packed_plain(packed_mat, words)
         raise ValueError(f"gf_matmul_packed: unsupported device {words.device}")
     if not words.is_contiguous():
         raise ValueError("gf_matmul_packed: words must be contiguous")
     if r * k * 32 > MAX_TABLE_BYTES:
         raise ValueError(
             f"gf_matmul_packed: r*k*32 = {r * k * 32} table bytes exceed the "
-            f"kernel's {MAX_TABLE_BYTES} bytes of shared memory"
+            f"kernel's {MAX_TABLE_BYTES}"
         )
     if tables is None:
         tables = _tables_for(packed_mat, words.device)
-    if (tables.dtype != torch.uint8 or tuple(tables.shape) != (r, k, 32)
-            or tables.device != words.device or not tables.is_contiguous()):
-        raise ValueError(
-            f"tables must be contiguous ({r}, {k}, 32) uint8 on {words.device}, "
-            f"got {tuple(tables.shape)} {tables.dtype} on {tables.device}"
-        )
+    device = words.get_device()
+    host = launch_tables(tables, r, k, device, "gf_matmul_packed")
     n4 = words.shape[1]
-    out = torch.empty((r, n4), dtype=torch.int32, device=words.device)
+    out = words.new_empty((r, n4))
     if n4 == 0:
         return out
-    lib = _lib()
-    with torch.cuda.device(words.device):
-        stream = torch.cuda.current_stream(words.device).cuda_stream
-        err = lib.gf_matmul_packed_launch(
-            tables.data_ptr(), words.data_ptr(), out.data_ptr(), k, r, n4, stream
-        )
+    err = on_device(device, _lib().gf_matmul_packed_launch, tables.data_ptr(), host,
+                    words.data_ptr(), out.data_ptr(), k, r, n4)
     if err != 0:
-        msg = lib.gf_cuda_error_string(err).decode()
+        msg = _lib().gf_cuda_error_string(err).decode()
         raise RuntimeError(f"gf_matmul_packed launch failed: CUDA error {err} ({msg})")
     gf_matmul_packed.launches += 1
     return out

@@ -43,6 +43,7 @@ import torch
 
 from ceph_tpu_torch.device import resolve_device
 from ceph_tpu_torch.ops import gf_bitplane as bp
+from ceph_tpu_torch.ops import gf_cuda as gc
 
 DATA_SPEC = ("stripe", None, "byte")
 
@@ -218,7 +219,7 @@ def shard_batch(data, mesh: Mesh) -> MeshArray:
 def _sharded_matmul(mesh: Mesh, coding, data: MeshArray) -> MeshArray:
     """B8: every slot multiplies its (B/S, k, L/Bb) block by the replicated
     bit-matrix of `coding` (a codec's `CodingTables`) with one B3 launch on
-    its device and stream; no communication. The bit-matrix's nibble tables
+    its device and stream; no communication. The bit-matrix's kernel tables
     are copied once to each other device the mesh names. Each slot stream
     waits for its device's current stream (where the blocks and the outputs
     were made) and the current stream waits for every slot stream after."""
@@ -229,7 +230,7 @@ def _sharded_matmul(mesh: Mesh, coding, data: MeshArray) -> MeshArray:
     for i, (idx, block) in enumerate(data.slots):
         dev = block.device
         if dev not in tables:
-            tables[dev] = coding.tables_t.to(dev)
+            tables[dev] = gc.tables_to(coding.tables_t, dev)
         stream = streams[i]
         if dev.type == "cuda":
             if dev not in ready:

@@ -40,13 +40,20 @@ and recovering through the GF(2^8) kernel. Phases:
   2. build every kernel under ceph_tpu_torch/csrc with nvcc (ptxas report);
   3. each kernel against its plain torch version on the card, bit-exact, at
      the main path's shapes and a few others, and a column window against the
-     numpy GF(2^8) oracle;
+     numpy GF(2^8) oracle; for B1 every launch plan (64-, 128- and
+     256-thread blocks: one object's width, a width between, the burst) and
+     variant (tables in the launch parameter or in device memory, 16-byte
+     or masked accesses): encode and decode with r = 1..3 at one object's
+     width, r = 4, 5 and k = 1, a ragged N4, a bit-matrix that is not
+     GF(2^8)'s and r * k * 32 at the 48 KiB limit, under torch.profiler,
+     failing unless every packed variant the launcher names was launched;
   4. the main path, with launch counts zeroed just before and read just
      after: 64 concurrent 4 MiB objects through EncodeService.encode (one
      launch), the rebuild of data chunks {0,1,2} of all 64 through
      EncodeService.decode (one launch), a byte-API round trip of one object,
      and the port's ec_bench in encode and decode;
-  5. times (CUDA events): the kernel beside its memory bound, its plain
+  5. times (CUDA events): the kernel beside its memory bound at the
+     burst's width and at one object's width (the daemons'), its plain
      version, and the EncodeService batch split into host pack,
      host-to-device copy, kernel, device-to-host copy, the per-chunk result
      bytes, and the rest of the flush (its encode_batch tracer span), beside
@@ -105,7 +112,11 @@ and recovering through the GF(2^8) kernel. Phases:
       ragged, k = 1, rows not 16-byte aligned and more items than grid
       rows, and on planar words at (8, 8 Mi), (2, 32 Mi) and a ragged
       width; the row product at liberation's encode and decode, ragged and
-      strided, and at C = 289;
+      strided, and at C = 289; the byte-layout matmul also at one object's
+      width (MiniCluster's put, and its decode from strided survivors),
+      with its tables in device memory (aligned and ragged) and at the
+      48 KiB limit; under torch.profiler, failing unless every byte-form
+      variant the launcher names was launched;
   14. the EC families' main path, the four new counts zeroed just before
       and read just after: for shec k=4 m=3 c=2, lrc k=4 m=2 l=3, clay
       k=4 m=2 d=5 and liberation k=4 m=2 w=7 packetsize=2048, ec_bench
@@ -119,7 +130,8 @@ and recovering through the GF(2^8) kernel. Phases:
       launch);
   15. times: each new kernel (CUDA events) beside its bytes bound and its
       plain version (B2 and its library call, torch.bitwise_xor, timed in
-      turns), and each family's batch encode and decode (GB/s, the
+      turns), the byte-layout matmul also at one object's width (1, 8,
+      512 KiB), and each family's batch encode and decode (GB/s, the
       H2D and D2H copies, one profiled run each: device busy time, the new
       kernels' share of it, idle share);
   16. the RADOS data path, the byte-layout matmul's count zeroed before each
@@ -259,6 +271,9 @@ PROFILE = {"k": str(K), "m": str(M), "technique": "cauchy"}
 OBJECTS = 64
 OBJECT_BYTES = 4 << 20
 N4 = 8 << 20  # int32 words per planar row of the 64-object batch
+#: int32 words per planar row of one object: the width the daemons' EncodeService
+#: and MiniCluster launch the GF(2^8) kernel at
+OBJECT_N4 = OBJECT_BYTES // K // 4
 ERASED = (0, 1, 2)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 TIMED_LAUNCHES = 50
@@ -378,8 +393,68 @@ def kernel_times(fn, reps: int) -> dict:
 
 
 def times_text(t: dict) -> str:
-    return (f"{t['ms']:.4f} ms a call (device time {t['held_ms']:.4f} ms with the stream "
-            f"held; host {t['host_us']:.1f} us a call)")
+    return (f"{t['ms']:.5f} ms a call (device time {t['held_ms']:.5f} ms with the stream "
+            f"held; host {t['host_us']:.2f} us a call)")
+
+
+#: the GF(2^8) kernels' variants as torch.profiler names them: the packed (B1)
+#: or byte (B3) form, its tables in the launch parameter (true) or in device
+#: memory, 16-byte accesses (true) or masked ones
+GF_VARIANT = re.compile(r"gf_matmul_(packed|bytes)_kernel<(true|false), (true|false)>")
+#: the variants csrc/gf_matmul.cu's dispatch launches
+GF_DISPATCH = re.compile(r"launch<kBatched, (true|false), (true|false)>")
+
+
+def gf_variants_checked(gc, form: str, busy: dict, phase: str) -> list[str]:
+    """The `form` ("packed" or "bytes") variants a profiled phase launched,
+    with their counts printed; raises unless they are every variant the
+    source's dispatch names."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(gc.__file__)), os.pardir, "csrc",
+                           "gf_matmul.cu")) as f:
+        named = {f"gf_matmul_{form}_kernel<{p}, {v}>" for p, v in GF_DISPATCH.findall(f.read())}
+    ran: dict[str, int] = {}
+    for kname, (n, _ms) in busy.items():
+        for f, p, v in GF_VARIANT.findall(kname):
+            if f == form:
+                key = f"gf_matmul_{f}_kernel<{p}, {v}>"
+                ran[key] = ran.get(key, 0) + n
+    print(f"  variants launched in this phase (torch.profiler): "
+          f"{', '.join(f'{k} x{n}' for k, n in sorted(ran.items()))}; the launcher names "
+          f"{len(named)}", flush=True)
+    if not named or set(ran) != named:
+        raise AssertionError(f"phase {phase} launched {sorted(ran)}, the launcher names "
+                             f"{sorted(named)}")
+    return sorted(ran)
+
+
+def gf_plan(gc, work: int) -> str:
+    """The launch plan csrc/gf_matmul.cu picks on this card for `work`
+    16-byte groups (a case label)."""
+    threads, blocks = gc.launch_plan(work)
+    return f"{blocks} blocks of {threads} threads"
+
+
+def device_memory_route(gc, tables, inp, words: bool) -> torch.Tensor:
+    """One launch of the GF(2^8) kernel through its C entry point without the
+    host copy of the tables, so that it reads them from device memory at any
+    r * k (the wrappers pass the copy, and the launcher then carries tables of
+    r * k <= kParamTables in the launch parameter). Counts nothing."""
+    lib = gc._lib()
+    r, k = tables.shape[:2]
+    stream = torch.cuda.current_stream().cuda_stream
+    if words:
+        out = inp.new_empty((r, inp.shape[1]))
+        err = lib.gf_matmul_packed_launch(tables.data_ptr(), None, inp.data_ptr(),
+                                          out.data_ptr(), k, r, inp.shape[1], stream)
+    else:
+        batch, _, length = inp.shape
+        out = inp.new_empty((batch, r, length))
+        err = lib.gf_matmul_bytes_launch(tables.data_ptr(), None, inp.data_ptr(),
+                                         out.data_ptr(), k, r, batch, length, inp.stride(0),
+                                         inp.stride(1), stream)
+    if err != 0:
+        raise AssertionError(f"device-memory route launch failed: CUDA error {err}")
+    return out
 
 
 def random_words(rows: int, n4: int, gen: torch.Generator) -> torch.Tensor:
@@ -388,10 +463,13 @@ def random_words(rows: int, n4: int, gen: torch.Generator) -> torch.Tensor:
     return data.view(torch.int32)
 
 
-def check_kernel(name, gc, packed, tables, words) -> int:
-    """Kernel vs plain version on the same card tensors; returns the max
-    absolute byte difference (0, or the phase fails)."""
-    got = gc.gf_matmul_packed(packed, words, tables=tables)
+def check_kernel(name, gc, packed, tables, words, device_memory=False) -> int:
+    """Kernel vs plain version on the same card tensors (through the wrapper,
+    or with `device_memory` through the route that reads the tables from
+    device memory); returns the max absolute byte difference (0, or the
+    phase fails)."""
+    got = (device_memory_route(gc, tables, words, True) if device_memory
+           else gc.gf_matmul_packed(packed, words, tables=tables))
     torch.cuda.synchronize()
     want = gc.gf_matmul_packed_plain(packed, words)
     torch.cuda.synchronize()
@@ -404,13 +482,22 @@ def check_kernel(name, gc, packed, tables, words) -> int:
     return err
 
 
-def phase_kernels(gc, gf, codec, factory) -> int:
-    """Phase 3: every comparison of the kernel with its plain version."""
+def phase_kernels(gc, gf, codec, factory) -> tuple[int, list[str]]:
+    """Phase 3: every comparison of the kernel with its plain version, for
+    every launch plan and variant, under torch.profiler: it fails unless
+    every packed variant the launcher names was launched. Returns the max
+    error and the variants seen."""
+    errs = []
+    _, busy = profiled(lambda: errs.extend(packed_cases(gc, gf, codec, factory)))
+    return max(errs), gf_variants_checked(gc, "packed", busy, "3")
+
+
+def packed_cases(gc, gf, codec, factory) -> list[int]:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     words = random_words(K, N4, gen)
     enc = codec._encode
-    errs = [check_kernel("isa cauchy RS(8,3) encode", gc, enc.packed_t,
-                         enc.tables_t, words)]
+    errs = [check_kernel(f"isa cauchy RS(8,3) encode, burst width ({gf_plan(gc, N4 // 4)})", gc,
+                         enc.packed_t, enc.tables_t, words)]
     # a column window of the same launch against the numpy oracle
     got = gc.gf_matmul_packed(enc.packed_t, words, tables=enc.tables_t)
     window = slice(12345, 12345 + 4096)
@@ -425,6 +512,22 @@ def phase_kernels(gc, gf, codec, factory) -> int:
     errs.append(check_kernel("decode of erased {0,1,2}", gc, dec.packed_t,
                              dec.tables_t, words))
 
+    # one object's width, as the daemons launch it: encode, decode with
+    # r = 1..3, and the tables read from device memory
+    obj = random_words(K, OBJECT_N4, gen)
+    label = gf_plan(gc, OBJECT_N4 // 4)
+    errs.append(check_kernel(f"object width encode ({label})", gc, enc.packed_t,
+                             enc.tables_t, obj))
+    for r in (1, 2, 3):
+        d = codec.decode_bitmatrix(present, list(ERASED[:r]))
+        errs.append(check_kernel(f"object width decode r={r}", gc, d.packed_t, d.tables_t,
+                                 obj))
+    errs.append(check_kernel("object width encode, tables from device memory", gc,
+                             enc.packed_t, enc.tables_t, obj, device_memory=True))
+    mid = random_words(K, 160_000, gen)
+    errs.append(check_kernel(f"encode ({gf_plan(gc, 160_000 // 4)})", gc, enc.packed_t,
+                             enc.tables_t, mid))
+
     jer = factory("jerasure", {"k": "4", "m": "2", "technique": "reed_sol_van"})
     errs.append(check_kernel("jerasure reed_sol_van k=4 m=2", gc,
                              jer._encode.packed_t, jer._encode.tables_t,
@@ -435,12 +538,24 @@ def phase_kernels(gc, gf, codec, factory) -> int:
     errs.append(check_kernel(
         "random {0,1} bit-matrix", gc,
         torch.from_numpy(gc.pack_matrix(bitmat)).cuda(),
-        torch.from_numpy(gc.nibble_tables(bitmat)).cuda(), words))
+        torch.from_numpy(gc.kernel_tables(bitmat)).cuda(), words))
+    for r, k in ((4, K), (5, K), (3, 1)):
+        t = card_tables(gf_matrix=rng.integers(0, 256, (r, k), np.uint8))
+        errs.append(check_kernel(f"r={r} k={k} at the object width", gc, t.packed_t,
+                                 t.tables_t, obj[:k].contiguous()))
+    # r * k * 32 at the 48 KiB limit: tables in device memory, two row groups
+    # of four passes, sixteen load groups
+    wide = card_tables(bits=(rng.random((8 * 12, 8 * 128)) < 0.5).astype(np.int8))
+    errs.append(check_kernel("r=12 k=128 (48 KiB of tables)", gc, wide.packed_t,
+                             wide.tables_t, random_words(128, 3000, gen)))
 
     ragged = random_words(K, N4 + 37, gen)
     errs.append(check_kernel("ragged N4 = 8 Mi + 37", gc, enc.packed_t,
                              enc.tables_t, ragged))
-    return max(errs)
+    errs.append(check_kernel("ragged N4 = object width + 37, tables from device memory", gc,
+                             enc.packed_t, enc.tables_t, random_words(K, OBJECT_N4 + 37, gen),
+                             device_memory=True))
+    return errs
 
 
 def phase_main_path(codec, EncodeService, ec_bench) -> tuple[list[bytes], dict]:
@@ -526,6 +641,25 @@ def phase_times(gc, codec, es, smi: str) -> dict:
           f"{moved / kernel_ms / 1e6:.1f} GB/s; plain {plain_ms:.3f} ms; "
           "library call: none", flush=True)
 
+    obj = random_words(K, OBJECT_N4, gen)
+    ot = kernel_times(
+        lambda: gc.gf_matmul_packed(enc.packed_t, obj, tables=enc.tables_t), 200)
+    obj_moved = (K + M) * OBJECT_N4 * 4
+    obj_bound = obj_moved / HBM_BYTES_PER_S * 1e3
+    print(f"  [{smi}] gf_matmul_packed at one object's width ({K}, {OBJECT_N4}) -> "
+          f"({M}, {OBJECT_N4}) int32, as the daemons launch it: kernel {times_text(ot)}, "
+          f"bound {obj_bound:.5f} ms ({obj_moved} B at 3.35 TB/s), roofline share "
+          f"{obj_bound / ot['ms']:.3f} (of the device time {obj_bound / ot['held_ms']:.3f}); "
+          f"beside the burst width's share {bound_ms / kernel_ms:.3f} "
+          f"(of the device time {bound_ms / kt['held_ms']:.3f})", flush=True)
+    # what holds it there: the launch itself, and the table route
+    one = torch.zeros(1, device="cuda")
+    floor_ms = held_ms(lambda: one.zero_(), 200)
+    dm_ms = held_ms(lambda: device_memory_route(gc, enc.tables_t, obj, True), 200)
+    print(f"  [{smi}] beside it, device time a launch: a trivial kernel (zero_ of one "
+          f"element) {floor_ms:.5f} ms; the object width with its tables read from device "
+          f"memory instead of the launch parameter {dm_ms:.5f} ms", flush=True)
+
     # EncodeService batch split, stage by stage, on the main path's batch shape
     blob = np.random.default_rng(SEED + 2).bytes(OBJECTS * OBJECT_BYTES)
     items = [(blob[i * OBJECT_BYTES:(i + 1) * OBJECT_BYTES], OBJECT_BYTES // K)
@@ -571,7 +705,9 @@ def phase_times(gc, codec, es, smi: str) -> dict:
           f"whole encode {total_ms:.3f} ms "
           f"({OBJECTS * OBJECT_BYTES / total_ms / 1e6:.3f} GB/s of object data), "
           f"outside the flush {total_ms - flush_ms:.3f} ms", flush=True)
-    return {**kt, "plain_ms": plain_ms, "bound_ms": bound_ms}
+    return {**kt, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "at_object_width": {**ot, "bound_ms": obj_bound, "launch_floor_ms": floor_ms,
+                                "device_memory_held_ms": dm_ms}}
 
 
 # -- the CRUSH path -------------------------------------------------------------
@@ -1620,17 +1756,27 @@ def family_codecs(factory) -> dict:
     return {name: factory(plugin, dict(prof)) for name, plugin, prof, _e, _o in FAMILIES}
 
 
-def phase_family_kernels(bp, gc, bmx, codecs) -> dict:
+def phase_family_kernels(bp, gc, bmx, codecs, rs_codec) -> tuple[dict, list[str]]:
     """Phase 13: the four new kernels against their plain versions on the
-    card, at the main path's shapes and on crafted ones."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    card, at the main path's shapes and on crafted ones, under
+    torch.profiler: it fails unless every byte-form variant of the GF(2^8)
+    kernel that the launcher names was launched. Returns the max errors and
+    those variants."""
     errs = {"gf_matmul_bitplane": [], "xor_reduce": [], "xor_reduce_words": [],
             "xor_rowmatmul": []}
+    _, busy = profiled(lambda: family_cases(bp, gc, bmx, codecs, rs_codec, errs))
+    return ({name: max(v) for name, v in errs.items()},
+            gf_variants_checked(gc, "bytes", busy, "13"))
+
+
+def family_cases(bp, gc, bmx, codecs, rs_codec, errs) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
     chunk = OBJECT_BYTES // 4
     shec, lrc, lib = codecs["shec"], codecs["lrc"], codecs["liberation"]
 
-    def b3(name, tables, data):
-        got = bp.gf_matmul_bitplane(tables.bits_t, data, tables=tables.tables_t)
+    def b3(name, tables, data, device_memory=False):
+        got = (device_memory_route(gc, tables.tables_t, data, False) if device_memory
+               else bp.gf_matmul_bitplane(tables.bits_t, data, tables=tables.tables_t))
         errs["gf_matmul_bitplane"].append(
             check_equal(name, got, bp.gf_matmul_bitplane_plain(tables.bits_t, data)))
 
@@ -1661,6 +1807,22 @@ def phase_family_kernels(bp, gc, bmx, codecs) -> dict:
     foreign = card_tables(bits=(rng.random((40, 48)) < 0.5).astype(np.int8))
     b3("B3 random {0,1} bit-matrix (not GF(2^8)'s), r=5 k=6", foreign,
        random_bytes((OBJECTS, 6, chunk // 4 + 5), gen))
+    # one object's width, MiniCluster's put (1, 8, 512 KiB) and its degraded
+    # get (the survivors a strided view), then the tables from device memory
+    obj_len = OBJECT_BYTES // K
+    enc = rs_codec._encode
+    b3(f"B3 isa k=8 m=3 encode at one object's width ({gf_plan(gc, obj_len // 16)})", enc,
+       random_bytes((1, K, obj_len), gen))
+    present = [i for i in range(K + M) if i not in ERASED][:K]
+    surv = random_bytes((1, K + M, obj_len), gen)
+    b3("B3 decode of {0,1,2} at one object's width, strided survivors",
+       rs_codec.decode_bitmatrix(present, list(ERASED)), surv[:, M:])
+    b3("B3 object width encode, tables from device memory", enc,
+       random_bytes((1, K, obj_len), gen), device_memory=True)
+    b3("B3 ragged L = 1000003, strided, tables from device memory", shec._encode,
+       ragged[:, 1:5], device_memory=True)
+    wide = card_tables(bits=(rng.random((8 * 12, 8 * 128)) < 0.5).astype(np.int8))
+    b3("B3 r=12 k=128 (48 KiB of tables)", wide, random_bytes((2, 128, 4096), gen))
     # B4: lrc's local layer, then ragged, k = 1, strided
     b4("B4 lrc local layer k=3", random_bytes((OBJECTS, 3, chunk), gen))
     phys = random_bytes((OBJECTS, 8, chunk), gen)
@@ -1684,7 +1846,6 @@ def phase_family_kernels(bp, gc, bmx, codecs) -> dict:
        lib._encode, random_bytes((3, 30, 2048 * 3 + 12), gen)[:, 1:29])
     wide = bmx.RowMatrix(bmx.liberation_bitmatrix(17, 17), torch.device("cuda"))
     b5("B5 liberation k=17 w=17 (C = 289)", wide, random_bytes((2, 289, 4096), gen))
-    return {name: max(v) for name, v in errs.items()}
 
 
 def card_tables(gf_matrix=None, bits=None):
@@ -1871,7 +2032,7 @@ def host_seconds(fn, reps: int) -> float:
     return best
 
 
-def phase_family_times(bp, gc, bmx, codecs, smi: str) -> dict:
+def phase_family_times(bp, gc, bmx, codecs, rs_codec, smi: str) -> dict:
     """Phase 15: each new kernel beside its bytes bound and its plain
     version, at the main path's shapes, and beside the one PyTorch call that
     computes the same function where there is one (B2 at k=2 is
@@ -1933,6 +2094,21 @@ def phase_family_times(bp, gc, bmx, codecs, smi: str) -> dict:
               f"{lib_text}", flush=True)
         times[name] = {**kt, "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "library_ms": library_ms}
+
+    # B3 at one object's width: MiniCluster's put, one launch per object
+    enc = rs_codec._encode
+    obj = random_bytes((1, K, OBJECT_BYTES // K), gen)
+    ot = kernel_times(lambda: bp.gf_matmul_bitplane(enc.bits_t, obj, tables=enc.tables_t), 200)
+    moved = (K + M) * OBJECT_BYTES // K
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    b3 = times["gf_matmul_bitplane"]
+    print(f"  [{smi}] gf_matmul_bitplane at one object's width (1, {K}, {OBJECT_BYTES // K}) -> "
+          f"(1, {M}, {OBJECT_BYTES // K}), as MiniCluster's puts launch it: kernel "
+          f"{times_text(ot)}, bound {bound_ms:.5f} ms ({moved} B at 3.35 TB/s), roofline "
+          f"share {bound_ms / ot['ms']:.3f} (of the device time {bound_ms / ot['held_ms']:.3f}); "
+          f"beside shec's (64, 4, 1 MiB) share {b3['bound_ms'] / b3['ms']:.3f} (of the device "
+          f"time {b3['bound_ms'] / b3['held_ms']:.3f})", flush=True)
+    b3["at_object_width"] = {**ot, "bound_ms": bound_ms}
 
     for name, plugin, prof, erasure_sets, objects in FAMILIES:
         codec = codecs[name]
@@ -4128,7 +4304,7 @@ def main() -> int:
 
     print("phase 3: kernel vs plain on the card", flush=True)
     codec = factory("isa", dict(PROFILE))
-    max_err = phase_kernels(gc, gf, codec, factory)
+    max_err, packed_variants = phase_kernels(gc, gf, codec, factory)
 
     print("phase 4: main path", flush=True)
     gc.gf_matmul_packed.launches = 0
@@ -4192,7 +4368,7 @@ def main() -> int:
 
     print("phase 13: EC family kernels vs plain on the card", flush=True)
     codecs = family_codecs(factory)
-    family_err = phase_family_kernels(bp, gc, bmx, codecs)
+    family_err, bytes_variants = phase_family_kernels(bp, gc, bmx, codecs, codec)
 
     print("phase 14: EC families main path", flush=True)
     new_wrappers = {"gf_matmul_bitplane": bp.gf_matmul_bitplane, "xor_reduce": bp.xor_reduce,
@@ -4210,7 +4386,7 @@ def main() -> int:
         raise AssertionError(f"the EC families path never launched {family_launches}")
 
     print("phase 15: EC family times", flush=True)
-    family_times = phase_family_times(bp, gc, bmx, codecs, smi)
+    family_times = phase_family_times(bp, gc, bmx, codecs, codec, smi)
 
     print("phase 16: the RADOS data path (MiniCluster) on the card", flush=True)
     rados = phase_rados_main(bp, factory, smi)
@@ -4258,6 +4434,8 @@ def main() -> int:
         "bound_ms": times["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "variants": packed_variants,
+        "at_object_width": times["at_object_width"],
     }, {
         "name": "crush_choose",
         "route": "cuda",
@@ -4311,6 +4489,9 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": family_times[name]["library_ms"],
         })
+    next(k for k in kernels if k["name"] == "gf_matmul_bitplane").update(
+        variants=bytes_variants,
+                      at_object_width=family_times["gf_matmul_bitplane"]["at_object_width"])
     kernels.append({
         "name": "sharded_matmul",
         "route": "cuda",

@@ -46,9 +46,9 @@ def bitmatrix(rng, r, k, gf_derived):
 
 
 def matmul(bm, data):
-    """gf_matmul_bitplane with bm's split-nibble tables, as the codecs call it."""
+    """gf_matmul_bitplane with bm's kernel tables, as the codecs call it."""
     bm = bm if isinstance(bm, torch.Tensor) else torch.from_numpy(bm)
-    tables = torch.from_numpy(gc.nibble_tables(bm.cpu().numpy())).to(data.device)
+    tables = torch.from_numpy(gc.kernel_tables(bm.cpu().numpy())).to(data.device)
     return bp.gf_matmul_bitplane(bm, data, tables=tables)
 
 
@@ -128,7 +128,7 @@ def gather_rows(buf, batch, rows, length, sb, sk):
 
 def emulate_bytes_kernel(tables, buf, batch, k, length, sb, sk):
     """csrc/gf_matmul.cu gf_matmul_bytes_kernel: per 16-byte group, four
-    words of each input row through the split-nibble byte-permute lookups
+    words of each input row through the byte-permute lookups
     of the packed kernel, stores masked at `length`."""
     from tests.test_torch_gf_cuda import emulate_kernel
 
@@ -224,7 +224,7 @@ def test_bytes_kernel_emulation_matches_plain(batch, k, r, length, gf_derived, c
     view = (torch.from_numpy(rng.integers(0, 256, (batch, k, length), np.uint8))
             if contiguous else strided(rng, batch, k, length))
     buf, sb, sk = flat(view)
-    got = emulate_bytes_kernel(gc.nibble_tables(bm), buf, batch, k, length, sb, sk)
+    got = emulate_bytes_kernel(gc.kernel_tables(bm), buf, batch, k, length, sb, sk)
     assert np.array_equal(got, bp.gf_matmul_bitplane_plain(torch.from_numpy(bm), view).numpy())
 
 
@@ -307,6 +307,7 @@ class _FakeFn:
 @pytest.mark.parametrize("source,name,loader", [
     ("gf_matmul.cu", "gf_matmul_bytes_launch", gc._lib),
     ("gf_matmul.cu", "gf_matmul_packed_launch", gc._lib),
+    ("gf_matmul.cu", "gf_matmul_plan", gc._lib),
     ("xor_rowmatmul.cu", "xor_rowmatmul_launch", gc._xor_lib),
     ("xor_rowmatmul.cu", "xor_rows_launch", gc._xor_lib),
 ])
@@ -330,7 +331,7 @@ def test_kernel_source_and_binding_agree(monkeypatch, source, name, loader):
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     bm = torch.from_numpy(bitmatrix(np.random.default_rng(4), 2, 4, True))
-    tables = torch.from_numpy(gc.nibble_tables(bm.numpy()))
+    tables = torch.from_numpy(gc.kernel_tables(bm.numpy()))
     for data, error, match in [
         (torch.zeros((1, 4, 8), dtype=torch.int32), TypeError, None),
         (torch.zeros((4, 8), dtype=torch.uint8), TypeError, None),

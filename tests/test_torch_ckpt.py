@@ -17,6 +17,8 @@ import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
+import ml_dtypes
 from jax.sharding import Mesh as JaxMesh
 from jax.sharding import NamedSharding, PartitionSpec as P
 
@@ -145,6 +147,158 @@ def test_select_retained_matches_ceph_tpu():
                 assert (port_gc.select_retained(history, keep_last=keep_last, keep_every_nth=nth)
                         == ref_gc.select_retained(history, keep_last=keep_last,
                                                   keep_every_nth=nth))
+
+
+# -- bfloat16 leaves -----------------------------------------------------------
+
+
+def bf16_bits(seed: int) -> dict:
+    """int16 raw bits of the bfloat16 leaves: normal float32 values from the
+    seed rounded to bfloat16 (ml_dtypes' rounding, as jax casts)."""
+    rng = np.random.default_rng(seed)
+
+    def bits(shape):
+        f32 = rng.standard_normal(shape).astype(np.float32)
+        return f32.astype(ml_dtypes.bfloat16).view(np.int16)
+
+    return {"emb": bits((64, 24)), "scale": bits(7), "f32": rng.standard_normal(5).astype(np.float32)}
+
+
+def bf16_tree(pkg: str, seed: int, slots: int = 4) -> dict:
+    """A tree holding bfloat16 leaves in each package's form (jnp.bfloat16
+    for ceph_tpu, torch.bfloat16 for the port); "emb" laid out on a mesh of
+    `slots` devices along `fleet`."""
+    host = bf16_bits(seed)
+    if pkg == REF:
+        emb = host["emb"].view(ml_dtypes.bfloat16)
+        return {"emb": jax.device_put(emb, NamedSharding(mesh(REF, "fleet", slots), P("fleet", None))),
+                "scale": jnp.asarray(host["scale"].view(ml_dtypes.bfloat16)),
+                "f32": host["f32"]}
+
+    def bf16(a):
+        return torch.from_numpy(a.copy()).view(torch.bfloat16)
+
+    return {"emb": sh.place(bf16(host["emb"]), ("fleet", None), mesh(PORT, "fleet", slots)),
+            "scale": bf16(host["scale"]), "f32": torch.from_numpy(host["f32"].copy())}
+
+
+def bits_view(tree) -> dict:
+    """{key: (dtype name, raw bytes)} of a restored tree: a port bfloat16
+    tensor's bits, a ceph_tpu '<V2' array's bytes."""
+    out = {}
+    for key, leaf in tree.items():
+        if isinstance(leaf, sh.MeshArray):
+            leaf = leaf.full("cpu")
+        if isinstance(leaf, torch.Tensor):
+            name = str(leaf.dtype)
+            leaf = leaf.view(torch.int16) if leaf.dtype is torch.bfloat16 else leaf
+            out[key] = (name, leaf.numpy().tobytes())
+        else:
+            out[key] = (np.asarray(leaf).dtype.str, np.asarray(leaf).tobytes())
+    return out
+
+
+@pytest.mark.parametrize("ranks", [0, 4])
+def test_bf16_manifest_and_chunk_bytes_match_ceph_tpu(ranks):
+    """A tree with bfloat16 leaves (one on a mesh): flatten_tree's records,
+    the manifest and every chunk's payload and fingerprint equal ceph_tpu's,
+    the leaves recorded as '<V2' with their raw bits in the stream."""
+    recs = [layout.flatten_tree(bf16_tree(pkg, 4))
+            for pkg, layout in ((REF, ref_layout), (PORT, port_layout))]
+    keys = ("path", "dtype", "shape", "spec")
+    assert [[tuple(r[k] for k in keys) for r in rs] for rs in recs][1] == \
+        [tuple(r[k] for k in keys) for r in recs[0]]
+    assert [r["dtype"] for r in recs[1]] == ["<V2", "<f4", "<V2"]
+    payloads, manifests = [], []
+    for pkg, writer, config in ((REF, RefWriter, RefConfig), (PORT, PortWriter, PortConfig)):
+        cfg = config()
+        cfg.set("ckpt_chunk_target_bytes", 4096)
+        w = writer(stub_ioctx(cfg), "twin", bf16_tree(pkg, 4, ranks or 4), save_id="s0",
+                   config=cfg)
+        got = {}
+        for rank in range(ranks or 1):
+            if ranks:
+                w.prepare_parallel(ranks, rank)
+                own = w.owned_chunks()
+            else:
+                w.prepare()
+                own = list(enumerate(w.manifest["chunks"]))
+            w._fingerprint([c for _i, c in own])
+            got.update({i: w._payload(c) for i, c in own})
+            w._chunk_cache.clear()
+            w._np_blocks.clear()
+        payloads.append([got[i] for i in range(len(got))])
+        manifests.append(w.manifest)
+    assert payloads[1] == payloads[0]
+    assert (port_layout.encode_manifest(manifests[1])
+            == ref_layout.encode_manifest(manifests[0]))
+    host = bf16_bits(4)
+    stream = b"".join(payloads[1])
+    for a in manifests[1]["arrays"]:
+        want = host[a["path"][0][1]].tobytes()
+        assert stream[a["offset"]:a["offset"] + a["nbytes"]] == want
+
+
+def test_bf16_leaves_restore_as_bit_identical_torch_bf16():
+    """The port's reader turns a '<V2' manifest entry back into a
+    torch.bfloat16 tensor sharing the read bytes (a whole restore, a shard,
+    a mesh slot all go through layout.to_tensor)."""
+    bits = bf16_bits(5)["emb"]
+    raw = np.frombuffer(bits.tobytes(), np.dtype("<V2")).reshape(bits.shape).copy()
+    t = port_layout.to_tensor(raw, "<V2")
+    assert t.dtype is torch.bfloat16 and tuple(t.shape) == bits.shape
+    assert np.array_equal(t.view(torch.int16).numpy(), bits)
+    assert port_layout.torch_dtype("<V2") is torch.bfloat16
+    assert port_layout.torch_dtype("<f4") is torch.float32
+    assert port_layout.dtype_str(torch.bfloat16) == np.dtype(ml_dtypes.bfloat16).str
+
+
+async def bf16_round(cluster, seed: int) -> dict:
+    """Save a tree with bfloat16 leaves into the EC pool, restore it whole,
+    one shard of it and onto a 2-slot mesh; every object in the pool. The
+    port's restores give torch.bfloat16 with the saved bits; ceph_tpu's give
+    '<V2' arrays of the same bytes (a deliberate difference), so the views
+    compare raw bytes. Then the OTHER package's reader restores the objects."""
+    name = cluster.pkg.name
+    ck = importlib.import_module(f"{name}.ckpt")
+    cpu = {"device": "cpu"} if name == PORT else {}
+    cluster.cfg.set("ckpt_chunk_target_bytes", 4096)
+    rados = cluster.client()
+    await rados.connect()
+    await cluster.create_pools(rados)
+    io = rados.io_ctx(EC_POOL)
+    store = ck.CkptStore(io, "bf16")
+    obs = {"s0": await store.save(bf16_tree(name, seed), save_id="s0")}
+    full = await store.restore(**cpu)
+    view = bits_view(full)
+    host = bf16_bits(seed)
+    assert {k: v[1] for k, v in view.items()} == {k: a.tobytes() for k, a in host.items()}
+    obs["full"] = {k: v[1] for k, v in view.items()}
+    if name == PORT:
+        assert full["emb"].dtype is torch.bfloat16 and full["scale"].dtype is torch.bfloat16
+        shard = await store.reader().read_shard("emb", (slice(8, 24), slice(None)), device="cpu")
+        assert shard.dtype is torch.bfloat16
+        assert np.array_equal(shard.view(torch.int16).numpy(), host["emb"][8:24])
+        on_mesh = await store.restore(mesh=mesh(PORT, "stripe", 2))
+        assert on_mesh["emb"].dtype is torch.bfloat16
+        assert all(t.dtype is torch.bfloat16 for _i, t in on_mesh["emb"].slots)
+        assert np.array_equal(on_mesh["emb"].full("cpu").view(torch.int16).numpy(), host["emb"])
+    obs["objects"] = {o: await io.read(o) for o in await ck.gc.list_objects(io, "bf16")}
+    other = Package(REF if name == PORT else PORT)
+    foreign = cluster.client(other, "client.foreign")
+    await foreign.connect()
+    back = await importlib.import_module(f"{other.name}.ckpt").CkptStore(
+        foreign.io_ctx(EC_POOL), "bf16").restore(**({} if cpu else {"device": "cpu"}))
+    assert {k: v[1] for k, v in bits_view(back).items()} == obs["full"]
+    await foreign.shutdown()
+    await rados.shutdown()
+    return obs
+
+
+def test_port_ckpt_store_saves_and_restores_bf16_like_ceph_tpu():
+    """On both packages' daemons: equal save results, equal objects and
+    stores, and each reader restores the other's bfloat16 leaves."""
+    twin(bf16_round, 9)
 
 
 def host_view(tree, path="") -> dict:

@@ -32,6 +32,7 @@ import signal
 import sys
 from types import SimpleNamespace
 
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -567,6 +568,74 @@ async def parallel_round(cluster, admin, M) -> dict:
 
 def test_port_fleet_parallel_save_matches_ceph_tpu():
     coord_twin(parallel_round)
+
+
+def bf16_host_tree() -> dict:
+    """int16 raw bits of a bfloat16 tree (normal float32 values from a seed
+    rounded to bfloat16) and a float32 leaf."""
+    rng = np.random.default_rng(12)
+    return {"emb": rng.standard_normal((96, 8)).astype(np.float32)
+            .astype(ml_dtypes.bfloat16).view(np.int16),
+            "f": rng.standard_normal(16).astype(np.float32)}
+
+
+def bf16_leaf(name: str, bits: np.ndarray):
+    """A bfloat16 leaf as the package takes it: ml_dtypes for ceph_tpu, a
+    torch.bfloat16 tensor for the port."""
+    if name == REF:
+        return bits.view(ml_dtypes.bfloat16)
+    return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+
+
+def raw_bits(x) -> bytes:
+    """The bytes of any package's restored leaf (a port bfloat16 tensor's bits)."""
+    if isinstance(x, MeshArray):
+        x = x.full("cpu")
+    if isinstance(x, torch.Tensor) and x.dtype is torch.bfloat16:
+        x = x.view(torch.int16)
+    return host(x).tobytes()
+
+
+async def bf16_fleet_round(cluster, admin, M) -> dict:
+    """A fleet-parallel save of a tree with a bfloat16 leaf through
+    FleetDriver by three ranks, then a whole restore, one rank's shard and
+    (the port only) restore_mesh: the saved bits come back (torch.bfloat16
+    in the port, '<V2' in ceph_tpu), and the OTHER package restores the
+    save."""
+    handles = await fleet_drivers(cluster, M)
+    drivers = [d for _, d in handles]
+    assert await drivers[0].fleet.elect()
+    bits = bf16_host_tree()
+    tree = {"emb": bf16_leaf(M.name, bits["emb"]), "f": bits["f"]}
+    saves = [await d.save_async(M.mesh.shard_tree(tree, fleet_mesh(M.name, 3)),
+                                save_id="h0", timeout=60) for d in drivers]
+    obs = {"sids": await asyncio.gather(*(s.wait() for s in saves))}
+    kw = {"device": "cpu"} if M.name == PORT else {}
+    restored = [await drivers[1].restore(**kw)]
+    if M.name == PORT:  # ceph_tpu cannot place a '<V2' array on a jax mesh
+        restored.append(await drivers[2].restore_mesh())
+    for back in restored:
+        assert {k: raw_bits(v) for k, v in back.items()} == {k: a.tobytes() for k, a in bits.items()}
+        if M.name == PORT:
+            assert back["emb"].dtype is torch.bfloat16
+    obs["shard"] = await drivers[2].restore_shard("emb")
+    other = mods(REF if M.name == PORT else PORT)
+    foreign = cluster.client(Package(other.name), "client.foreign")
+    await foreign.connect()
+    back = await other.CkptStore(foreign.io_ctx(REP_POOL), "model").restore(
+        **({"device": "cpu"} if other.name == PORT else {}))
+    assert {k: raw_bits(v) for k, v in back.items()} == {k: a.tobytes() for k, a in bits.items()}
+    await foreign.shutdown()
+    for rados, d in handles:
+        await d.fleet.leave()
+        await rados.shutdown()
+    return obs
+
+
+def test_port_fleet_saves_bf16_like_ceph_tpu():
+    """FleetDriver's collective save of bfloat16 leaves on the CPU: equal
+    observations and stores, and each package restores the other's save."""
+    coord_twin(bf16_fleet_round)
 
 
 async def abort_round(cluster, admin, M) -> dict:

@@ -17,6 +17,7 @@ import importlib
 import json
 from types import SimpleNamespace
 
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -222,6 +223,97 @@ async def data_round(cluster, seed: int) -> dict:
 
 def test_port_datastore_matches_ceph_tpu_on_live_clusters():
     twin(data_round, 5)
+
+
+def bf16_records(seed: int, n: int = 40) -> list[np.ndarray]:
+    """int16 raw bits of bfloat16 records: normal float32 values from the
+    seed rounded to bfloat16 (ml_dtypes' rounding)."""
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((6, 10)).astype(np.float32).astype(ml_dtypes.bfloat16)
+            .view(np.int16) for _ in range(n)]
+
+
+def bf16_inputs(name: str, bits: list[np.ndarray]) -> list:
+    """The records as each package takes them: ml_dtypes bfloat16 arrays
+    for ceph_tpu, torch.bfloat16 tensors for the port."""
+    if name == REF:
+        return [b.view(ml_dtypes.bfloat16) for b in bits]
+    return [torch.from_numpy(b.copy()).view(torch.bfloat16) for b in bits]
+
+
+def batch_bits(batch):
+    """(dtype name, raw bytes) of a bfloat16 batch from either package."""
+    if isinstance(batch, torch.Tensor):
+        return str(batch.dtype), batch.view(torch.int16).numpy().tobytes()
+    return str(batch.dtype), batch.view(np.int16).tobytes()
+
+
+def test_bf16_schema_and_record_bytes_match_ceph_tpu():
+    """DataWriter.prepare of bfloat16 records: the schema ("bfloat16"),
+    the manifest and every shard's stream and index equal ceph_tpu's, the
+    records' raw bits in the stream."""
+    from ceph_tpu.common.config import Config as RefConfig
+    from ceph_tpu.data.writer import DataWriter as RefWriter
+    from ceph_tpu_torch.common.config import Config as PortConfig
+    from ceph_tpu_torch.data.writer import DataWriter as PortWriter
+    from tests.test_torch_ckpt import stub_ioctx
+
+    bits = bf16_records(6)
+    out = []
+    for name, writer, config in ((REF, RefWriter, RefConfig), (PORT, PortWriter, PortConfig)):
+        cfg = config()
+        cfg.set("data_shard_bytes", 4096)
+        w = writer(stub_ioctx(cfg), "ds", ingest_id="i0", config=cfg)
+        manifest = w.prepare(bf16_inputs(name, bits))
+        out.append((manifest, w._shards))
+    (ref_manifest, ref_shards), (port_manifest, port_shards) = out
+    assert port_manifest["schema"] == {"dtype": "bfloat16", "shape": [6, 10]}
+    assert port_manifest == ref_manifest
+    assert port_shards == ref_shards and len(port_shards) > 1
+    payloads = [port_layout.decode_record(stream[e[0]:e[0] + e[1]], e, "")
+                for stream, entries in port_shards for e in entries]
+    assert payloads == [b.tobytes() for b in bits]
+
+
+async def bf16_data_round(cluster, seed: int) -> dict:
+    """Ingest bfloat16 records into the EC pool, verify, iterate every
+    batch on one host; the port yields torch.bfloat16 batches, ceph_tpu
+    ml_dtypes bfloat16 arrays, of the same bits. Then the OTHER package's
+    reader iterates the same dataset."""
+    name = cluster.pkg.name
+    data = importlib.import_module(f"{name}.data")
+    cluster.cfg.set("data_shard_bytes", 4096)
+    rados = cluster.client()
+    await rados.connect()
+    await cluster.create_pools(rados)
+    bits = bf16_records(seed)
+    store = data.DataStore(rados.io_ctx(EC_POOL), "bf16")
+    obs = {"id": await store.ingest(bf16_inputs(name, bits), ingest_id="h0")}
+    obs["verify"] = await store.verify()
+    it = await store.iterator(seed=seed, batch_size=7, num_hosts=1, host=0)
+    batches = [batch async for batch in it]
+    obs["batches"] = [batch_bits(b)[1] for b in batches]
+    assert {batch_bits(b)[0] for b in batches} == {"torch.bfloat16" if name == PORT
+                                                  else "bfloat16"}
+    order = data.layout.epoch_permutation(len(bits), seed, 0)
+    assert b"".join(obs["batches"]) == b"".join(bits[i].tobytes() for i in order)
+    other = Package(REF if name == PORT else PORT)
+    foreign = cluster.client(other, "client.foreign")
+    await foreign.connect()
+    ostore = importlib.import_module(f"{other.name}.data").DataStore(
+        foreign.io_ctx(EC_POOL), "bf16")
+    back = [batch_bits(b)[1] async for b in await ostore.iterator(
+        seed=seed, batch_size=7, num_hosts=1, host=0)]
+    assert back == obs["batches"]
+    await foreign.shutdown()
+    await rados.shutdown()
+    return obs
+
+
+def test_port_datastore_ingests_and_reads_bf16_like_ceph_tpu():
+    """On both packages' daemons: equal observations (the batches' bits),
+    equal stores, and each reader reads the other's bfloat16 dataset."""
+    twin(bf16_data_round, 8)
 
 
 # -- the tools ------------------------------------------------------------------

@@ -245,7 +245,7 @@ def test_decode_tables_cached_per_signature():
     assert np.array_equal(first.bits, bits)
     assert np.array_equal(first.packed, packed)
     assert np.array_equal(first.packed_t.numpy(), packed)
-    assert np.array_equal(first.tables_t.numpy(), gc.nibble_tables(bits))
+    assert np.array_equal(first.tables_t.numpy(), gc.kernel_tables(bits))
     with pytest.raises(ErasureCodeError):
         ec.decode_words([1, 2, 3], [0], np.zeros((3, 4), np.int32))
 

@@ -88,7 +88,7 @@ def test_gf_matmul_bitplane_matches(batch, k, r, length):
     data = rng.integers(0, 256, (batch, k, length), np.uint8)
     bits = tbp.bitplane_matrix(mat, device="cpu")
     got = tbp.gf_matmul_bitplane(
-        bits, torch.from_numpy(data), tables=torch.from_numpy(gc.nibble_tables(bits.numpy()))
+        bits, torch.from_numpy(data), tables=torch.from_numpy(gc.kernel_tables(bits.numpy()))
     )
     want = jbp.gf_matmul_bitplane(jbp.bitplane_matrix(mat), jnp.asarray(data))
     assert got.dtype == torch.uint8
@@ -99,7 +99,7 @@ def test_gf_matmul_bitplane_matches(batch, k, r, length):
 
 def test_gf_matmul_bitplane_rejects_bad_shapes():
     mat = tbp.bitplane_matrix(np.ones((2, 4), np.uint8), device="cpu")
-    tables = torch.from_numpy(gc.nibble_tables(mat.numpy()))
+    tables = torch.from_numpy(gc.kernel_tables(mat.numpy()))
     with pytest.raises(ValueError):
         tbp.gf_matmul_bitplane(mat, torch.zeros((1, 3, 8), dtype=torch.uint8), tables=tables)
     with pytest.raises(TypeError):

@@ -1,12 +1,13 @@
 """The packed-word GF(2^8) matmul (ceph_tpu_torch.ops.gf_cuda) against the
 JAX package's Pallas kernel (ceph_tpu.ops.gf_pallas), which runs here in
 interpret mode as tests/test_gf_pallas.py runs it. On the CPU the wrapper runs
-the plain torch version; the CUDA kernel's own arithmetic (split-nibble
-tables looked up with byte permutes) is emulated in numpy below, and the
+the plain torch version; the CUDA kernel's own arithmetic (tables of a
+byte's three bit fields looked up with byte permutes) is emulated in numpy below, and the
 kernel itself is compared with the plain version on a card by
 tests/test_torch_gpu.py. Tolerance 0 everywhere: the data are integers."""
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -110,58 +111,104 @@ def test_xor_reduce_words_matches():
 
 @pytest.mark.parametrize("k,r", [(4, 2), (8, 3)])
 def test_nibble_tables_reproduce_products(k, r):
+    """The kernel's tables (`kernel_tables`) give every GF(2^8) product as
+    the XOR of the lookups of a byte's fields: bits 0-2, 3-5 and 6-7."""
     mat = np.random.default_rng(7).integers(0, 256, (r, k), np.uint8)
-    tables = gc.nibble_tables(gf.matrix_to_bitmatrix(mat))
+    tables = gc.kernel_tables(gf.matrix_to_bitmatrix(mat))
     assert tables.shape == (r, k, 32) and tables.dtype == np.uint8
+    assert not tables[..., 20:].any()
     x = np.arange(256)
     for i in range(r):
         for j in range(k):
-            f = tables[i, j, x & 15] ^ tables[i, j, 16 + (x >> 4)]
+            f = np.zeros(256, np.uint8)
+            for start, first, width in gc.TABLE_FIELDS:
+                f ^= tables[i, j, start + ((x >> first) & ((1 << width) - 1))]
             assert np.array_equal(f, gf.gf_mul(mat[i, j], x.astype(np.uint8)))
 
 
 def test_nibble_tables_reject_non_binary():
     with pytest.raises(ValueError):
-        gc.nibble_tables(np.full((8, 8), 2, np.int8))
+        gc.kernel_tables(np.full((8, 8), 2, np.int8))
 
 
 # -- numpy emulation of the kernel's per-word arithmetic (csrc/gf_matmul.cu) --
 
-def byte_perm(x, y, sel):
-    """CUDA __byte_perm: byte n of the result is byte (sel >> 4n) & 7 of
-    the 8-byte value y:x."""
-    pool = (y.astype(np.uint64) << np.uint64(32)) | x.astype(np.uint64)
-    out = np.zeros(x.shape, dtype=np.uint64)
+def kernel_constants() -> dict:
+    """kRowGroup, kLoadGroup and kParamTables of csrc/gf_matmul.cu."""
+    with open(os.path.join(os.path.dirname(cuda_build.CSRC_DIR), "csrc", "gf_matmul.cu")) as f:
+        src = f.read()
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+            for name in ("kRowGroup", "kLoadGroup", "kParamTables")}
+
+
+def prmt(a, b, sel):
+    """PTX prmt.b32 in its default mode: byte n of the result is byte
+    sel_n & 7 of the 8-byte value b:a, or, where bit 3 of the selector
+    nibble sel_n is set, that byte's bit 7 replicated over the byte."""
+    pool = (np.asarray(b, np.uint64) << np.uint64(32)) | np.asarray(a, np.uint64)
+    pool, sel = np.broadcast_arrays(pool, np.asarray(sel, np.uint64))
+    out = np.zeros(pool.shape, dtype=np.uint64)
     for n in range(4):
-        pick = (sel.astype(np.uint64) >> np.uint64(4 * n)) & np.uint64(7)
-        out |= ((pool >> (pick * np.uint64(8))) & np.uint64(0xFF)) << np.uint64(8 * n)
+        nib = (sel >> np.uint64(4 * n)) & np.uint64(15)
+        byte = (pool >> ((nib & np.uint64(7)) * np.uint64(8))) & np.uint64(0xFF)
+        signed = np.where(byte & np.uint64(0x80), np.uint64(0xFF), np.uint64(0))
+        byte = np.where(nib & np.uint64(8), signed, byte)
+        out |= byte << np.uint64(8 * n)
     return out.astype(np.uint32)
 
 
-def nibbles(n4x8, bit3):
-    folded = n4x8 | (n4x8 >> np.uint32(4))
-    sel = byte_perm(folded, np.zeros_like(folded), np.full_like(folded, 0x20))
-    return sel, bit3 * np.uint32(0xFF)
+def selector(field):
+    """A field (a value below 8 in each byte) as a prmt selector."""
+    return prmt(field | (field >> np.uint32(4)), 0, 0x0020)
 
 
-def lookup16(table, sel, mask):
-    t = [np.full_like(sel, v) for v in table.view("<u4")]
-    low = byte_perm(t[0], t[1], sel)
-    high = byte_perm(t[2], t[3], sel)
-    return (low & ~mask) | (high & mask)
+def selectors(w):
+    return (selector(w & np.uint32(0x07070707)),
+            selector((w >> np.uint32(3)) & np.uint32(0x07070707)),
+            selector((w >> np.uint32(6)) & np.uint32(0x03030303)))
 
 
-def emulate_kernel(tables, words):
+def product(t, t67, sels):
+    low, mid, high = sels
+    return prmt(t[0], t[1], low) ^ prmt(t[2], t[3], mid) ^ prmt(t67, 0, high)
+
+
+def emulate_kernel(tables, words, row_group=None, load_group=None):
+    """The kernel body on every column at once, in its order: per group of
+    `row_group` output rows, the input rows in groups of `load_group` (all
+    loaded, then looked up), block (i, j)'s tables read as the 16-byte
+    entry 2 (i k + j) and the first word of entry 2 (i k + j) + 1 of the
+    flat tables (the parameter block and the device copy hold the same
+    layout). The constants default to the source's."""
+    consts = kernel_constants()
+    row_group = row_group or consts["kRowGroup"]
+    load_group = load_group or consts["kLoadGroup"]
     r, k = tables.shape[:2]
+    flat = np.ascontiguousarray(tables).reshape(-1, 16).view("<u4")  # (2 r k, 4) words
     w = words.view(np.uint32)
     out = np.zeros((r, w.shape[1]), np.uint32)
-    for j in range(k):
-        lo = nibbles(w[j] & np.uint32(0x0F0F0F0F), (w[j] >> np.uint32(3)) & np.uint32(0x01010101))
-        hi = nibbles((w[j] >> np.uint32(4)) & np.uint32(0x0F0F0F0F),
-                     (w[j] >> np.uint32(7)) & np.uint32(0x01010101))
-        for i in range(r):
-            out[i] ^= lookup16(tables[i, j, :16], *lo) ^ lookup16(tables[i, j, 16:], *hi)
+    for i0 in range(0, r, row_group):
+        acc = np.zeros((row_group, w.shape[1]), np.uint32)
+        for j0 in range(0, k, load_group):
+            loaded = [w[j] for j in range(j0, min(j0 + load_group, k))]
+            for jj, v in enumerate(loaded):
+                sels = selectors(v)
+                for a in range(min(row_group, r - i0)):
+                    b = (i0 + a) * k + j0 + jj
+                    acc[a] ^= product(flat[2 * b], flat[2 * b + 1][0], sels)
+        out[i0:i0 + row_group] = acc[:min(row_group, r - i0)]
     return out.view(np.int32)
+
+
+def test_prmt_emulation_follows_the_ptx_modes():
+    a, b = np.uint32(0x8001FF7F), np.uint32(0x04030280)
+    assert prmt(a, b, 0x3210) == a and prmt(a, b, 0x7654) == b
+    assert prmt(a, b, 0x0020) == 0x7F7F017F
+    assert prmt(a, b, 0xBA98) == 0xFF00FF00  # bit 7 of each byte of a, replicated
+    # the kernel's selectors never set bit 3 of a nibble: copy mode only
+    w = np.random.default_rng(0).integers(0, 1 << 32, 4096, dtype=np.uint64).astype(np.uint32)
+    for sel in selectors(w):
+        assert not (sel & np.uint32(0x8888)).any()
 
 
 @pytest.mark.parametrize("gf_derived", [True, False])
@@ -172,8 +219,27 @@ def test_kernel_arithmetic_matches_plain(gf_derived):
     else:
         bitmat = (rng.random((24, 64)) < 0.5).astype(np.int8)
     words = gc.bytes_to_words(rng.integers(0, 256, (8, 1024), np.uint8))
-    got = emulate_kernel(gc.nibble_tables(bitmat), words)
+    got = emulate_kernel(gc.kernel_tables(bitmat), words)
     assert np.array_equal(got, port(gc.pack_matrix(bitmat), words))
+
+
+@pytest.mark.parametrize("k,r,row_group,load_group", [
+    (10, 6, None, None),  # two load groups and two row groups at the source's constants
+    (7, 5, 2, 3),         # ragged groups of both kinds
+    (1, 1, None, None),   # k = 1, r = 1
+])
+def test_kernel_groups_match_plain(k, r, row_group, load_group):
+    rng = np.random.default_rng(k * 10 + r)
+    bitmat = gf.matrix_to_bitmatrix(rng.integers(0, 256, (r, k), np.uint8))
+    words = gc.bytes_to_words(rng.integers(0, 256, (k, 256), np.uint8))
+    got = emulate_kernel(gc.kernel_tables(bitmat), words, row_group, load_group)
+    assert np.array_equal(got, port(gc.pack_matrix(bitmat), words))
+
+
+def test_parameter_block_fits_a_launch():
+    """The tables the launcher carries in the kernel parameter, with the
+    kernel's other arguments, fit the 4 KiB a launch's parameters may take."""
+    assert kernel_constants()["kParamTables"] * 32 + 64 <= 4096
 
 
 def test_wrapper_on_cpu_runs_plain_and_counts_no_launch():
@@ -194,11 +260,11 @@ def test_tables_derived_once_per_packed_matrix():
     packed = torch.from_numpy(gc.pack_matrix(bitmat))
     cpu = torch.device("cpu")
     first = gc._tables_for(packed, cpu)
-    assert np.array_equal(first.numpy(), gc.nibble_tables(bitmat))
+    assert np.array_equal(first.numpy(), gc.kernel_tables(bitmat))
     assert gc._tables_for(packed, cpu) is first
     other = gf.matrix_to_bitmatrix(np.full((3, 5), 7, np.uint8))
     packed.copy_(torch.from_numpy(gc.pack_matrix(other)))
-    assert np.array_equal(gc._tables_for(packed, cpu).numpy(), gc.nibble_tables(other))
+    assert np.array_equal(gc._tables_for(packed, cpu).numpy(), gc.kernel_tables(other))
 
 
 def test_wrapper_rejects_bad_inputs():
@@ -229,3 +295,15 @@ def test_kernel_build_is_named_by_source_and_needs_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         cuda_build.build(["gf_matmul"])
     assert not os.path.exists(tmp_path / "build") or not os.listdir(tmp_path / "build")
+
+
+def test_gf_kernel_times_needs_a_card(capsys):
+    """The kernels' timing tool measures on a card only: without one it
+    exits 2 and prints no result."""
+    from ceph_tpu_torch.tools import gf_kernel_times
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the no-card path is not reachable")
+    assert gf_kernel_times.main([]) == 2
+    captured = capsys.readouterr()
+    assert captured.out == "" and "CUDA card" in captured.err

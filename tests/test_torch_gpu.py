@@ -27,7 +27,7 @@ def test_cuda_kernel_matches_plain_on_card():
                (rng.random((24, 64)) < 0.5).astype(np.int8)]
     for bitmat in bitmats:
         packed = torch.from_numpy(gc.pack_matrix(bitmat)).cuda()
-        tables = torch.from_numpy(gc.nibble_tables(bitmat)).cuda()
+        tables = torch.from_numpy(gc.kernel_tables(bitmat)).cuda()
         for n4 in (1 << 16, (1 << 16) + 37):
             data = torch.randint(0, 256, (8, 4 * n4), dtype=torch.uint8,
                                  device="cuda", generator=gen)
@@ -36,6 +36,51 @@ def test_cuda_kernel_matches_plain_on_card():
             torch.cuda.synchronize()
             assert torch.equal(got, gc.gf_matmul_packed_plain(packed, words))
     assert gc.gf_matmul_packed.launches == before + 4
+
+
+@pytest.mark.gpu
+def test_gf_kernels_at_one_objects_width_match_plain_on_card():
+    """B1 and B3 at the width the daemons and MiniCluster launch them (one
+    4 MiB object of an RS(8,3) pool): B1 encode and decode with r = 1..3 on
+    (8, 131072) words, B3 encode on (1, 8, 524288) bytes and decode from a
+    strided survivors view, bit-exact; the tables' device-memory route too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on one)")
+    from ceph_tpu_torch.ec.registry import factory
+    from ceph_tpu_torch.ops import gf_bitplane as bp
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    codec = factory("isa", {"k": "8", "m": "3", "technique": "cauchy"})
+    words = torch.randint(0, 256, (8, 4 * 131072), dtype=torch.uint8, device="cuda",
+                          generator=gen).view(torch.int32)
+    survivors = torch.randint(0, 256, (1, 11, 524288), dtype=torch.uint8, device="cuda",
+                              generator=gen)
+    present = list(range(3, 11))
+    before = (gc.gf_matmul_packed.launches, bp.gf_matmul_bitplane.launches)
+    tables = [codec._encode] + [codec.decode_bitmatrix(present, [0, 1, 2][:r])
+                                for r in (1, 2, 3)]
+    for t in tables:
+        got = gc.gf_matmul_packed(t.packed_t, words, tables=t.tables_t)
+        assert torch.equal(got, gc.gf_matmul_packed_plain(t.packed_t, words))
+    enc = codec._encode
+    data = survivors[:, :8].contiguous()
+    got = bp.gf_matmul_bitplane(enc.bits_t, data, tables=enc.tables_t)
+    assert torch.equal(got, bp.gf_matmul_bitplane_plain(enc.bits_t, data))
+    view = survivors[:, 3:]  # a strided view, read in place
+    dec = tables[3]
+    got = bp.gf_matmul_bitplane(dec.bits_t, view, tables=dec.tables_t)
+    assert torch.equal(got, bp.gf_matmul_bitplane_plain(dec.bits_t, view))
+    # without the host copy of the tables the launcher reads them from
+    # device memory (the route of r * k > 48)
+    lib = gc._lib()
+    out = words.new_empty((3, 131072))
+    stream = torch.cuda.current_stream().cuda_stream
+    assert lib.gf_matmul_packed_launch(enc.tables_t.data_ptr(), None, words.data_ptr(),
+                                       out.data_ptr(), 8, 3, 131072, stream) == 0
+    assert torch.equal(out, gc.gf_matmul_packed_plain(enc.packed_t, words))
+    torch.cuda.synchronize()
+    assert (gc.gf_matmul_packed.launches, bp.gf_matmul_bitplane.launches) == \
+        (before[0] + 4, before[1] + 2)
 
 
 @pytest.mark.gpu
