@@ -198,7 +198,9 @@ def gf_matmul_packed_plain(packed_mat: torch.Tensor, words: torch.Tensor) -> tor
         o = par[0].clone()
         for b in range(1, 8):
             o |= par[b] << b
-        out[:, c : c + n] = o.permute(0, 2, 1).contiguous().view(torch.int32).reshape(r, n)
+        # (r, 4n) bytes, then words: a one-word step's (r, 1, 4) permute is
+        # "contiguous" with a byte stride on its size-1 axis, which view refuses
+        out[:, c : c + n] = o.permute(0, 2, 1).reshape(r, 4 * n).contiguous().view(torch.int32)
     return out
 
 

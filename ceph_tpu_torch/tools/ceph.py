@@ -30,8 +30,7 @@ Output is JSON per command (the reference's `-f json`).
 
 Port of the reference package's `tools/ceph.py`. `--device` (default cuda,
 which raises without a card) is where the client's codecs and the balancer
-run. `prometheus`, `autoscaler` and `trace` need manager modules that are not
-ported and raise "not ported"."""
+run."""
 
 from __future__ import annotations
 
@@ -42,10 +41,6 @@ import os
 import sys
 
 from ceph_tpu_torch.device import resolve_device
-
-#: commands whose manager modules (prometheus, autoscaler, the trace
-#: collector behind `ceph top`) are not ported
-NOT_PORTED = ("prometheus", "autoscaler", "trace")
 
 
 def _parse_kv(pairs):
@@ -152,10 +147,16 @@ async def _dispatch(rados, args) -> dict:
     if cmd == "pg" and args.rest[0] == "dump":
         return _pg_dump(rados.objecter.osdmap, args.pool)
 
-    if cmd in NOT_PORTED:
-        raise NotImplementedError(
-            f"ceph {cmd}: needs manager modules not ported to ceph_tpu_torch"
-        )
+    if cmd == "prometheus":
+        from ceph_tpu_torch.mgr import PrometheusExporter
+
+        text = await PrometheusExporter(rados.objecter).collect()
+        return {"metrics": text}
+    if cmd == "autoscaler":
+        from ceph_tpu_torch.mgr import PgAutoscaler
+
+        apply = len(args.rest) > 0 and args.rest[0] == "apply"
+        return await PgAutoscaler(rados.objecter).run_once(apply=apply)
     if cmd == "balancer" and args.rest[0] == "run":
         from ceph_tpu_torch.mgr import BalancerModule
 
@@ -167,6 +168,31 @@ async def _dispatch(rados, args) -> dict:
         ).run_once(
             pools=pools
         )
+
+    if cmd == "trace":
+        # flight-recorder queries answered by the active mgr's trace
+        # collector (tail-promoted traces; see ceph_tpu_torch/mgr/traces.py)
+        from ceph_tpu_torch.mon import MonMap
+        from ceph_tpu_torch.tools.ceph_top import TopClient
+
+        addrs = []
+        for hostport in args.mon_host.split(","):
+            host, _, port = hostport.rpartition(":")
+            addrs.append((host or "127.0.0.1", int(port)))
+        top = TopClient(MonMap(addrs=addrs), name=f"{args.name}.trace")
+        try:
+            sub = args.rest[0] if args.rest else "ls"
+            if sub == "ls":
+                return await top.fetch("trace ls")
+            if sub == "show":
+                if len(args.rest) < 2:
+                    raise SystemExit("usage: trace show <trace_id>")
+                return await top.fetch(
+                    "trace show", trace_id=args.rest[1]
+                )
+            raise SystemExit(f"unknown trace subcommand {sub!r}")
+        finally:
+            await top.close()
 
     if cmd == "daemon":
         target = args.rest[0]

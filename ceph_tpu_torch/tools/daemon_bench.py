@@ -8,18 +8,21 @@ the daemons' device) -> shard fan-out -> acks. Reports daemon-path GB/s and
 the launch-coalescing ratio, as distinct from the raw kernel figure.
 
 Port of the reference package's `tools/daemon_bench.py`: the in-process
-run, and `--multiprocess` (every daemon its own process through
-`vstart.VStart`, plus `--clients` client worker processes, each a
-`--client-worker` run of this module). `--device` (default cuda, which
-raises without a card) is where every daemon's codecs and EncodeService run,
-in every process: on a card each daemon and worker holds its own CUDA
-context. `--mgr`, `--recovery` and `--chaos` need modules not ported yet and
-raise instead of running.
+run (with `--mgr`, an active manager and its scrape times), `--recovery`
+(the recovery engine's A/B: objects healed a second, one object at a time
+against batched, on the chaos harness's cluster), `--chaos SEED` (the chaos
+harness's live run and its oracle verdict), and `--multiprocess` (every
+daemon its own process through `vstart.VStart`, plus `--clients` client
+worker processes, each a `--client-worker` run of this module). `--device`
+(default cuda, which raises without a card) is where every daemon's codecs
+and EncodeService run, in every process: on a card each daemon and worker
+holds its own CUDA context.
 
 Usage:
     python -m ceph_tpu_torch.tools.daemon_bench [--osds 6] [--size 262144]
         [--objects 96] [--concurrency 24] [--k 4 --m 2] [--device cpu]
-        [--multiprocess --clients 4]
+        [--mgr | --recovery [--recovery-objects 400] | --chaos SEED
+         | --multiprocess --clients 4]
 """
 
 from __future__ import annotations
@@ -32,9 +35,6 @@ import sys
 import time
 
 from ceph_tpu_torch.device import resolve_device
-
-#: options whose modes need modules this package does not have yet
-NOT_PORTED = ("mgr", "recovery", "chaos")
 
 
 def parse_args(argv: list[str] | None = None):
@@ -164,7 +164,7 @@ async def main(args) -> dict:
         from ceph_tpu_torch.mgr import MgrService
 
         cfg.set("mgr_report_interval", 0.5)
-        mgr = MgrService("mgr.bench", monmap, config=cfg)
+        mgr = MgrService("mgr.bench", monmap, config=cfg, device=args.device)
         await mgr.start()
         deadline = time.monotonic() + 30
         while not mgr.active:
@@ -350,6 +350,150 @@ async def main(args) -> dict:
     if mgr_stats is not None:
         result["mgr"] = mgr_stats
     return result
+
+
+async def _recovery_leg(batch_max: int, n_objects: int, device) -> dict:
+    """One recovery measurement: amnesiac-kill an OSD, revive it, time
+    the heal with `osd_recovery_batch_max` pinned to `batch_max`, with a
+    client read loop running throughout (p99 under the storm).  A small
+    per-frame wire delay toward the reborn member makes the per-object
+    round-trip cost explicit: the serial engine pays it once per object,
+    the batched engine once per frame. The pool is the chaos cluster's
+    replicated one, so the heal launches no GF(2^8) kernel."""
+    from ceph_tpu_torch.tools.chaos_tool import (
+        REP_POOL,
+        LiveCluster,
+        backfill_source,
+        chaos_config,
+        wait_until,
+    )
+
+    cfg = chaos_config()
+    cfg.set("osd_recovery_batch_max", batch_max)
+    cluster = LiveCluster(cfg, device=device)
+    await cluster.start()
+    rados = cluster.client("client.rbench")
+    await rados.connect()
+    await cluster.create_pools(rados)
+    io = rados.io_ctx(REP_POOL)
+    for i in range(n_objects):
+        await io.write_full(f"r{i:04}", bytes([i % 251]) * 2048)
+
+    victim = 0
+    await cluster.kill_osd(victim)  # db dropped: amnesiac revival
+    await wait_until(
+        lambda: all(
+            o.osdmap.is_down(victim) for o in cluster.osds.values()
+        ),
+        timeout=30,
+    )
+    for i in range(n_objects, n_objects + 16):
+        await io.write_full(f"r{i:04}", bytes([i % 251]) * 2048)
+    cfg.set("ms_inject_chaos_seed", 1)
+    cfg.set(
+        "ms_inject_chaos_schedule",
+        f"delay:osd.*>osd.{victim}:1:0.05",
+    )
+    reborn = await cluster.start_osd(victim)
+    loop = asyncio.get_event_loop()
+
+    lat: list[float] = []
+    stop = asyncio.Event()
+
+    async def client_loop():
+        i = 0
+        while not stop.is_set():
+            s = loop.time()
+            await io.read(f"r{i % n_objects:04}")
+            lat.append(loop.time() - s)
+            i += 1
+
+    reader = asyncio.ensure_future(client_loop())
+
+    # heal target: every object whose PG the victim serves under the
+    # settled map must land back on it (amnesiac -> full repopulation)
+    await wait_until(
+        lambda: all(
+            not o.osdmap.is_down(victim)
+            for o in cluster.osds.values()
+        ),
+        timeout=60,
+    )
+    survivor = cluster.osds[(victim + 1) % (max(cluster.osds) + 1)]
+    expected = sum(
+        1 for i in range(n_objects + 16)
+        if victim in survivor.acting_of(
+            REP_POOL,
+            survivor.object_pg(REP_POOL, f"r{i:04}"),
+        )[0]
+    )
+
+    def healed_count() -> int:
+        n = 0
+        for coll in reborn.store.list_collections():
+            n += len([
+                o for o in reborn.store.list_objects(coll)
+                if not o.startswith(".")
+            ])
+        return n
+
+    def healed() -> bool:
+        return healed_count() >= expected and (
+            backfill_source(cluster) is None
+        )
+
+    # clock the push phase itself: start at the first landed object so
+    # peering/up-mark latency (identical in both legs) cancels out
+    await wait_until(lambda: healed_count() > 0, timeout=60)
+    base = healed_count()
+    t0 = loop.time()
+    await wait_until(healed, timeout=300)
+    heal_seconds = max(1e-9, loop.time() - t0)
+    healed_objects = healed_count() - base
+    stop.set()
+    await reader
+    cfg.set("ms_inject_chaos_schedule", "")
+    p99 = sorted(lat)[int(len(lat) * 0.99)] if lat else 0.0
+    await rados.shutdown()
+    await cluster.stop()
+    return {
+        "batch_max": batch_max,
+        "healed_objects": healed_objects,
+        "heal_seconds": round(heal_seconds, 3),
+        "healed_obj_per_s": round(healed_objects / heal_seconds, 2),
+        "client_ops": len(lat),
+        "client_p99_s": round(p99, 4),
+    }
+
+
+async def main_recovery(args) -> dict:
+    """A/B: one-object-at-a-time (batch_max=1) vs the batched engine."""
+    from ceph_tpu_torch.common.config import Config
+
+    serial = await _recovery_leg(1, args.recovery_objects, args.device)
+    batch = int(Config().get("osd_recovery_batch_max"))
+    batched = await _recovery_leg(batch, args.recovery_objects, args.device)
+    return {
+        "mode": "recovery",
+        "objects": args.recovery_objects,
+        "serial": serial,
+        "batched": batched,
+        "speedup": round(
+            batched["healed_obj_per_s"]
+            / max(1e-9, serial["healed_obj_per_s"]), 2,
+        ),
+    }
+
+
+async def main_chaos(args) -> dict:
+    from ceph_tpu_torch.tools.chaos_tool import run_chaos_live
+
+    report = await run_chaos_live(
+        args.chaos, steps=8, step_seconds=1.5,
+        progress=lambda *_: None, device=args.device,
+    )
+    report["mode"] = "chaos"
+    return report
 
 
 
@@ -550,16 +694,13 @@ def run(argv: list[str] | None = None) -> dict:
     """Parse `argv`, run the bench (or one client worker), return its
     result dict."""
     args = parse_args(argv)
-    asked = [name for name in NOT_PORTED
-             if getattr(args, name) not in (None, False)]
-    if asked:
-        raise NotImplementedError(
-            "daemon_bench: --" + ", --".join(a.replace("_", "-") for a in asked)
-            + " not ported to ceph_tpu_torch yet"
-        )
     args.device = resolve_device(args.device)
     if args.client_worker:
         return asyncio.run(asyncio.wait_for(client_worker(args), 600))
+    if args.chaos is not None:
+        return asyncio.run(asyncio.wait_for(main_chaos(args), 900))
+    if args.recovery:
+        return asyncio.run(asyncio.wait_for(main_recovery(args), 900))
     if args.multiprocess:
         return asyncio.run(asyncio.wait_for(main_multiprocess(args), 900))
     return asyncio.run(asyncio.wait_for(main(args), 600))

@@ -29,7 +29,8 @@ card). A card can be opened by many processes, so every OSD's
 builds the CUDA and native libraries before it spawns anything, and each
 daemon main creates its context and loads its libraries before its loop
 starts, so neither a build nor a context creation ever stalls a heartbeat.
-The mds/rgw/mgr daemons are not ported: ``start_daemon`` raises for them.
+``start_daemon("mgr", i)`` spawns a manager on the same device; the mds and
+rgw daemons are not ported, and ``start_daemon`` raises for them.
 """
 
 from __future__ import annotations
@@ -214,11 +215,15 @@ def init_device(device):
 
 
 class KernelCounters:
-    """A `perf dump` block ("kernels") reading this process's kernel
+    """A `perf dump` block ("kernels.osd.N") reading this process's kernel
     wrappers' own launch counts: how a launcher sees, over `osd_admin`, what
-    each daemon process launched on its card (a CPU path counts nothing)."""
+    each daemon process launched on its card (a CPU path counts nothing). The
+    block is named after its daemon, as the messenger's `msgr.osd.N` is, so
+    that the manager's Prometheus scrape, which labels a series with its
+    block, tells one OSD's counts from another's."""
 
-    name = "kernels"
+    def __init__(self, daemon: str):
+        self.name = f"kernels.{daemon}"
 
     @staticmethod
     def wrappers() -> dict:
@@ -263,9 +268,9 @@ async def _run_forever(stop_evt: asyncio.Event) -> None:
 
 
 def daemon_main(kind: str, ident: int, spec_path: str) -> None:
-    """Shared entry point behind ``python -m ceph_tpu_torch.{mon,osd}``."""
+    """Shared entry point behind ``python -m ceph_tpu_torch.{mon,osd,mgr}``."""
     spec = ClusterSpec.load(spec_path)
-    if kind not in ("mon", "osd"):
+    if kind not in ("mon", "osd", "mgr"):
         raise SystemExit(f"daemon kind {kind!r} is not ported to ceph_tpu_torch")
     # context and kernel libraries now, never on the daemon's loop
     device = init_device(spec.device)
@@ -285,7 +290,9 @@ def daemon_main(kind: str, ident: int, spec_path: str) -> None:
 
         cfg = spec.build_config()
         keyring = spec.bytes_keyring()
-        if kind == "osd" and cfg.get("osd_objectstore") == "memstore":
+        if kind == "mgr":
+            db = None  # a manager keeps no store
+        elif kind == "osd" and cfg.get("osd_objectstore") == "memstore":
             from ceph_tpu_torch.common.kv import MemDB
 
             db = MemDB()
@@ -312,6 +319,24 @@ def daemon_main(kind: str, ident: int, spec_path: str) -> None:
             await mon.start()
             started.set()
             print(f"mon.{ident} up at {spec.mon_addrs[ident]}", flush=True)
+        elif kind == "mgr":
+            from ceph_tpu_torch.mgr.daemon import MgrService
+
+            mgr = MgrService(
+                f"mgr.{ident}", spec.monmap(), config=cfg, keyring=keyring,
+                device=device,
+            )
+            daemon = mgr
+            _install_term_handler(loop, lambda: _stop(daemon))
+            await mgr.start()
+            port = await mgr.serve_http()
+            # boot-time run-file write, before any IO is served
+            with open(  # cephlint: disable=async-blocking
+                os.path.join(spec.run_dir, f"mgr.{ident}.port"), "w"
+            ) as f:
+                f.write(str(port))
+            started.set()
+            print(f"mgr.{ident} http on :{port} on {device}", flush=True)
         else:
             from ceph_tpu_torch.osd.daemon import OSDService
 
@@ -322,7 +347,7 @@ def daemon_main(kind: str, ident: int, spec_path: str) -> None:
                 ident, spec.monmap(), db=db, config=cfg, keyring=keyring,
                 device=device,
             )
-            osd.perf_collection.add(KernelCounters())
+            osd.perf_collection.add(KernelCounters(osd.name))
             daemon = osd
             _install_term_handler(loop, lambda: _stop(daemon))
             await osd.start()
@@ -399,15 +424,18 @@ class VStart:
         self.env.update(env or {})
         self.mons: dict[int, subprocess.Popen] = {}
         self.osds: dict[int, subprocess.Popen] = {}
+        #: daemons spawned by start_daemon: (kind, id) -> process
+        self.extra: dict[tuple, subprocess.Popen] = {}
         self._logs: list = []
 
     # -- process management ---------------------------------------------------
 
-    #: daemon kind -> python module hosting its __main__ (mds, rgw and mgr
-    #: are not ported)
+    #: daemon kind -> python module hosting its __main__ (mds and rgw are
+    #: not ported)
     _KIND_MODULE = {
         "mon": "ceph_tpu_torch.mon",
         "osd": "ceph_tpu_torch.osd",
+        "mgr": "ceph_tpu_torch.mgr",
     }
 
     def _spawn(self, kind: str, ident: int) -> subprocess.Popen:
@@ -442,11 +470,38 @@ class VStart:
         self.osds[osd_id] = self._spawn("osd", osd_id)
 
     def start_daemon(self, kind: str, ident: int) -> None:
-        """The reference spawns mds/rgw/mgr daemons here; their modules
-        are not ported."""
-        raise NotImplementedError(
-            f"vstart: {kind} daemons are not ported to ceph_tpu_torch"
+        """Spawn a mgr process on the cluster's device. The reference also
+        spawns mds and rgw daemons here; their modules are not ported."""
+        if kind not in self._KIND_MODULE:
+            raise NotImplementedError(
+                f"vstart: {kind} daemons are not ported to ceph_tpu_torch"
+            )
+        self.extra[(kind, ident)] = self._spawn(kind, ident)
+
+    def daemon_port(self, kind: str, ident: int,
+                    timeout: float = 60.0) -> int:
+        """Kernel-assigned port a mgr daemon published in its run file
+        (vstart.sh's out-dir convention)."""
+        path = os.path.join(
+            self.spec.run_dir, f"{kind}.{ident}.port"
         )
+        end = time.time() + timeout
+        while time.time() < end:
+            try:
+                with open(path) as f:
+                    raw = f.read().strip()
+                if raw:
+                    return int(raw)
+            except FileNotFoundError:
+                pass
+            dead = self.exited().get(f"{kind}.{ident}")
+            if dead is not None:
+                raise RuntimeError(
+                    f"{kind}.{ident} exited {dead}; its log ends:\n"
+                    + self.log_tail(f"{kind}.{ident}")
+                )
+            time.sleep(0.2)
+        raise TimeoutError(f"{kind}.{ident} never published a port")
 
     def kill_osd(self, osd_id: int, sig: int = signal.SIGKILL) -> None:
         p = self.osds.pop(osd_id)
@@ -466,6 +521,9 @@ class VStart:
             for ident, p in procs.items():
                 if p.poll() is not None:
                     out[f"{kind}.{ident}"] = p.returncode
+        for (kind, ident), p in self.extra.items():
+            if p.poll() is not None:
+                out[f"{kind}.{ident}"] = p.returncode
         return out
 
     def wait_started(self, timeout: float = 300.0) -> float:
@@ -499,6 +557,7 @@ class VStart:
         procs = {
             **{f"mon.{r}": p for r, p in self.mons.items()},
             **{f"osd.{i}": p for i, p in self.osds.items()},
+            **{f"{k}.{i}": p for (k, i), p in self.extra.items()},
         }
         for p in procs.values():
             if p.poll() is None:
@@ -515,6 +574,7 @@ class VStart:
             log.close()
         self.mons.clear()
         self.osds.clear()
+        self.extra.clear()
         return rcs
 
     # -- client-side helpers --------------------------------------------------

@@ -45,8 +45,10 @@ and recovering through the GF(2^8) kernel. Phases:
      variant (tables in the launch parameter or in device memory, 16-byte
      or masked accesses): encode and decode with r = 1..3 at one object's
      width, r = 4, 5 and k = 1, a ragged N4, a bit-matrix that is not
-     GF(2^8)'s and r * k * 32 at the 48 KiB limit, under torch.profiler,
-     failing unless every packed variant the launcher names was launched;
+     GF(2^8)'s and r * k * 32 at the 48 KiB limit, and the chaos pool's
+     tpu k = 2 (encode r = 2, decode r = 1 and 2 at N4 = 1, 7, 64, 257),
+     under torch.profiler, failing unless every packed variant the
+     launcher names was launched;
   4. the main path, with launch counts zeroed just before and read just
      after: 64 concurrent 4 MiB objects through EncodeService.encode (one
      launch), the rebuild of data chunks {0,1,2} of all 64 through
@@ -67,8 +69,9 @@ and recovering through the GF(2^8) kernel. Phases:
      chooseleaf indep over hosts rule with 11 positions: the placement of an
      RS(8,3) pool): CrushTester --show-statistics, the port's crushtool
      --test, and map_rule; no rule may go to the scalar mapper;
-  8. its outputs: all 1M rows of map_rule equal the plain version on the
-     card, the first 4096 x equal the scalar mapper, and the tester's and
+  8. its outputs: map_rule's rows equal the plain version on the card (all
+     1M of rule 0, the first 2^18 of rule 1), the first 1024 x equal the
+     scalar mapper, and the tester's and
      crushtool's outputs agree;
   9. times (CUDA events; host clock for whole calls): each stage's kernel
      beside its operation bound (the straw2 draws the run made, counted by
@@ -87,10 +90,11 @@ and recovering through the GF(2^8) kernel. Phases:
       the phase runs under torch.profiler and fails unless the kernels it
       launched are all the instantiations the source's launcher names;
   11. the balancer main path, counts zeroed just before: psim --scenario
-      --json twice (byte-identical reports) and once with --measure, then
+      --json, then again with --measure (equal reports but for its timing),
+      then
       BalancerModule.run_once in upmap and crush-compat modes through an
       in-process mon client; then its outputs: every PG an upmap touched
-      and 4096 sampled PGs per pool equal the scalar pipeline (worker
+      and 1024 sampled PGs per pool equal the scalar pipeline (worker
       processes), one replica per host, no duplicate OSD, the move budget
       and spread held, and the committed compat weight-set maps as the
       run-time overlay of the same weights does;
@@ -120,7 +124,7 @@ and recovering through the GF(2^8) kernel. Phases:
   14. the EC families' main path, the four new counts zeroed just before
       and read just after: for shec k=4 m=3 c=2, lrc k=4 m=2 l=3, clay
       k=4 m=2 d=5 and liberation k=4 m=2 w=7 packetsize=2048, ec_bench
-      --batch 64 (clay: 8) -s 4 MiB encode and decode of each erasure set,
+      --batch 64 (clay: 4) -s 4 MiB encode and decode of each erasure set,
       then the batch encode and decode on the card against the same codec
       on the CPU, and clay's MSR repair of a whole batch through
       repair_array; the eight corpus profiles of these families on the
@@ -158,8 +162,8 @@ and recovering through the GF(2^8) kernel. Phases:
       after it: B1 warmed at the pool's shape first, then 3 monitors, 12 OSD
       daemons (a host each, straw2, jewel; rule 0 takes k + m) and a Rados
       client in this process on the card; pool 1 isa k=8 m=3 cauchy (pg_num
-      64), pool 2 replicated size 3 (pg_num 32); the write window (64 x 4
-      MiB into pool 1 at concurrency 32, 16 into pool 2, 8 partial
+      16), pool 2 replicated size 3 (pg_num 8); the write window (32 x 4
+      MiB into pool 1 at concurrency 32, 8 into pool 2, 8 partial
       overwrites, 16 rewrites traced and 16 under torch.profiler), a read of
       every object, 2 OSDs stopped and marked down, the degraded-read window
       (every pool-1 object), the recovery window (the 2 back on empty
@@ -172,9 +176,10 @@ and recovering through the GF(2^8) kernel. Phases:
       share, B1's widths and its time at the most common one beside its
       bound, degraded-read GB/s, recovery seconds); then the checkpoint
       window on the same cluster: GPT-2 small's parameters (published
-      widths, 498 MB of float32 made on the card from the seed; cut from the
-      training state, whose Adam moments would triple it, to keep the run's
-      time; the embeddings and MLP weights laid out on a 1x1 mesh's `stripe`
+      widths, the first 6 of its 12 blocks: 328 MB of float32 made on the
+      card from the seed; cut from the training state, whose Adam moments
+      would triple it, to keep the run's time; the embeddings and MLP
+      weights laid out on a 1x1 mesh's `stripe`
       axis) saved into pool 1 with B1 counted, saved
       again with save_async after one layer changed (dedup ratio, stall
       against persist time, idle share under torch.profiler), verified,
@@ -199,8 +204,8 @@ and recovering through the GF(2^8) kernel. Phases:
       on BlockStore (FileDB and a block file in a temporary run dir), each
       daemon with its own CUDA context; rule 0's max_size raised to 11 with
       `osd crush set` (the operator's route); pool 1 isa k=8 m=3 cauchy
-      (pg_num 64), pool 2 replicated size 3 (pg_num 32); the write window
-      (128 x 4 MiB into pool 1 and 16 into pool 2 by 4 client processes, 32
+      (pg_num 32), pool 2 replicated size 3 (pg_num 16); the write window
+      (64 x 4 MiB into pool 1 and 16 into pool 2 by 4 client processes, 32
       in flight in all), a read of every object; the crash window (2 OSD
       processes SIGKILLed and marked down, every pool-1 object read degraded,
       16 more written); the restart window (the 2 restarted over their
@@ -217,9 +222,10 @@ and recovering through the GF(2^8) kernel. Phases:
       dataset window (65,536 records of 1,024 uint16 GPT-2 tokens, 128 MiB
       from the seed, ingested through DataStore into pool 1; `python -m
       ceph_tpu_torch.tools.data_tool ... verify` in its own process; one
-      epoch read as 4 hosts at batch 12, with the prefetch pipeline and
-      without it; each host's records equal the source rows at the ids
-      epoch_permutation and host_slice give, no record twice or missing;
+      epoch read as 4 hosts at batch 12, with the prefetch pipeline (cut
+      to 64 batches a host) and without it (cut to 16); each host's
+      records equal the source rows at the ids epoch_permutation and
+      host_slice give, no record twice or missing;
       ingest and read GB/s, records/s, block-cache hit rate); the
       fleet-parallel save window (4 in-process Fleet members, each on its
       own client, save GPT-2 small's parameters collectively from a 4-slot
@@ -233,9 +239,26 @@ and recovering through the GF(2^8) kernel. Phases:
       and resume with no acknowledged record twice or missing; the final
       HEAD equals the tool's `_tree(step)`; `fleet_tool status` prints the
       roster);
-  22. no process this script started is left (nvcc, nvidia-smi, the
+  22. the manager daemon, the chaos harness and the recovery A/B. On phase
+      20's cluster, before its SIGTERM: VStart spawns a mgr process on the
+      card (`python -m ceph_tpu_torch.mgr`); every OSD reports to it, and
+      its /metrics holds each OSD's `kernels.osd.N` block with a
+      gf_matmul_packed count equal to that OSD's perf dump; `python -m
+      ceph_tpu_torch.tools.ceph_top --json` counts the client ops of a
+      write window (B1 counted in it); a tail-captured traced write reaches
+      the mgr's trace store, `ceph trace show` gives it and `trace_tool`
+      renders its tree; the mgr exits 0 on SIGTERM. After phase 20:
+      ceph_tpu_torch.sim.run_chaos for seeds 1 and 7 on the card (B6 maps
+      the pools), each report equal to the CPU's; chaos_tool's live run
+      (seed 1, 8 steps; 3 mons, 6 OSDs, a tpu k=2 m=2 pool on B1 and a
+      size-3 pool) with its oracles (no acked write lost, no scrub error,
+      converged, p99 within budget), B1 launched with no call raising, and
+      every stored EC shard equal to the CPU tpu codec's; `daemon_bench
+      --recovery` at its defaults (the replicated pool: B1 is not expected
+      there); `daemon_bench --mgr`;
+  23. no process this script started is left (nvcc, nvidia-smi, the
       worker processes, the daemons and the tools are all waited for);
-  23. a `kernels` JSON line, then the `ok` JSON line, last.
+  24. a `kernels` JSON line, then the `ok` JSON line, last.
 
 Each kernel is timed three ways: `ms`, its call time (CUDA events around
 back-to-back calls of its wrapper, as every share and comparison uses);
@@ -282,7 +305,12 @@ CRUSH_OSDS = 10_000
 CRUSH_X = 1_000_000
 #: (rule, result_max): BASELINE's replicated rule and an RS(8,3) EC rule
 CRUSH_RULES = ((0, 3), (1, K + M))
-SCALAR_CHECK = 4096
+#: x checked against the scalar mapper, a cut for the 1200 s limit
+SCALAR_CHECK = 1024
+#: x of each rule's map_rule rows checked against the plain version in phase
+#: 8 (and its time): all of rule 0's; rule 1's plain version took 25 s over
+#: all 1M x, cut to the first 2^18 for the 1200 s limit
+PLAIN_CHECK_X = {0: CRUSH_X, 1: 1 << 18}
 #: H100 SXM: 132 SMs x 64 INT32 lanes per SM per clock x 1.98 GHz boost
 #: (NVIDIA Hopper architecture whitepaper)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -548,6 +576,19 @@ def packed_cases(gc, gf, codec, factory) -> list[int]:
     wide = card_tables(bits=(rng.random((8 * 12, 8 * 128)) < 0.5).astype(np.int8))
     errs.append(check_kernel("r=12 k=128 (48 KiB of tables)", gc, wide.packed_t,
                              wide.tables_t, random_words(128, 3000, gen)))
+
+    # the chaos harness's EC pool: the tpu plugin at k=2 m=2 on objects of
+    # 64-2047 B, so a few to a few hundred words a row
+    tpu = factory("tpu", {"k": "2", "m": "2"})
+    for n4 in CHAOS_N4:
+        small = random_words(2, n4, gen)
+        errs.append(check_kernel(f"tpu k=2 m=2 encode r=2 at N4={n4} "
+                                 f"({gf_plan(gc, -(-n4 // 4))})", gc, tpu._encode.packed_t,
+                                 tpu._encode.tables_t, small))
+        for present, erased in (([1, 2], [0]), ([2, 3], [0, 1])):
+            d = tpu.decode_bitmatrix(present, erased)
+            errs.append(check_kernel(f"tpu k=2 m=2 decode r={len(erased)} at N4={n4}", gc,
+                                     d.packed_t, d.tables_t, small))
 
     ragged = random_words(K, N4 + 37, gen)
     errs.append(check_kernel("ragged N4 = 8 Mi + 37", gc, enc.packed_t,
@@ -941,9 +982,20 @@ def phase_crush_main(tm, crushtool, CrushTester, text_map, path) -> dict:
 
 
 def phase_crush_outputs(tm, big, main) -> tuple[int, dict]:
-    """Phase 8: map_rule's rows against the plain version on the card (all
-    1M x) and the scalar mapper (the first 4096 x); returns the max abs err
-    and the plain version's ms per stage."""
+    """Phase 8: map_rule's rows against the plain version on the card (the
+    first PLAIN_CHECK_X x of each rule) and the scalar mapper (the first
+    SCALAR_CHECK x, in worker processes while the plain version runs);
+    returns the max abs err and the plain version's ms per stage."""
+    import concurrent.futures
+
+    # two cores left to this process, so that the plain version's timing
+    # does not wait for a core
+    workers = max(1, (min(8, os.cpu_count() or 1) - 2) // len(CRUSH_RULES))
+    step = -(-SCALAR_CHECK // workers)
+    jobs = [(big, rule, result_max, lo, min(lo + step, SCALAR_CHECK))
+            for rule, result_max in CRUSH_RULES for lo in range(0, SCALAR_CHECK, step)]
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    scalar = pool.submit(in_workers, "_scalar_rows", jobs)
     cm = tm.compile_map(big, device="cuda")
     xs = torch.arange(CRUSH_X, dtype=torch.int32, device="cuda")
     wv = torch.full((CRUSH_OSDS,), 0x10000, dtype=torch.int64, device="cuda")
@@ -952,28 +1004,28 @@ def phase_crush_outputs(tm, big, main) -> tuple[int, dict]:
         params = stage_params(big, firstn, result_max, 1, True)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        n = PLAIN_CHECK_X[rule]
         start.record()
         leaves = torch.cat([
-            tm.choose_stage_plain(cm, xs[lo:lo + (1 << 18)], -1, wv, **params)[1]
-            for lo in range(0, CRUSH_X, 1 << 18)])
+            tm.choose_stage_plain(cm, xs[lo:min(lo + (1 << 18), n)], -1, wv, **params)[1]
+            for lo in range(0, n, 1 << 18)])
         end.record()
         torch.cuda.synchronize()
         plain_ms[rule] = start.elapsed_time(end)
-        want, _ = tm._assemble_blocks([(firstn, leaves.cpu().numpy())], CRUSH_X, result_max)
-        rows = main[rule]["rows"]
+        want, _ = tm._assemble_blocks([(firstn, leaves.cpu().numpy())], n, result_max)
+        rows = main[rule]["rows"][:n]
         err = max(err, int(np.abs(rows.astype(np.int64) - want.astype(np.int64)).max()))
         equal = np.array_equal(rows, want)
-        print(f"  rule {rule}: map_rule rows == plain version on the card for all "
-              f"{CRUSH_X} x: {equal} (plain {plain_ms[rule]:.1f} ms)", flush=True)
+        print(f"  rule {rule}: map_rule rows == plain version on the card for the first "
+              f"{n} x of {CRUSH_X}: {equal} (plain {plain_ms[rule]:.1f} ms)", flush=True)
         if not equal:
+            pool.shutdown()
             raise AssertionError(f"rule {rule}: map_rule != plain version")
 
-    workers = min(8, os.cpu_count() or 1)
-    step = -(-SCALAR_CHECK // workers)
-    for rule, result_max in CRUSH_RULES:
-        jobs = [(big, rule, result_max, lo, min(lo + step, SCALAR_CHECK))
-                for lo in range(0, SCALAR_CHECK, step)]
-        want = [row for part in in_workers("_scalar_rows", jobs) for row in part]
+    parts = scalar.result()
+    pool.shutdown()
+    for rule, _result_max in CRUSH_RULES:
+        want = [row for job, part in zip(jobs, parts) if job[1] == rule for row in part]
         rows, lengths = main[rule]["rows"], main[rule]["lengths"]
         bad = [x for x in range(SCALAR_CHECK)
                if rows[x, :lengths[x]].tolist() != want[x]]
@@ -1020,8 +1072,8 @@ def phase_crush_times(cc, tm, big, main, plain_ms, smi: str) -> dict:
               f"({n_draws / CRUSH_X:.2f} per x) x {ops_per_draw} int ops / "
               f"{INT32_OPS_PER_S:.4g} ops/s = bound {ops_ms:.4f} ms (bytes {bytes_ms:.5f} "
               f"ms for {moved} B), share {bound_ms / ms:.3f} "
-              f"(of the device time {bound_ms / kt['held_ms']:.3f}); plain {plain_ms[rule]:.1f} ms; "
-              "library call: none", flush=True)
+              f"(of the device time {bound_ms / kt['held_ms']:.3f}); plain {plain_ms[rule]:.1f} ms "
+              f"over the first {PLAIN_CHECK_X[rule]} x; library call: none", flush=True)
         print(f"  [{smi}] map_rule rule {rule}: best of 3 {best:.4f} s = "
               f"{CRUSH_X / best:.1f} mappings/s (kernel {ms / 1e3 / best:.3f} of it); "
               f"CrushTester --show-statistics {m['tester_s']:.4f} s = mapping "
@@ -1040,9 +1092,11 @@ BAL_REP_PGS = 262_144
 BAL_EC_PGS = 32_768
 BAL_CHANGES = 2048
 #: calc_pg_upmaps passes timed in phase 12, each on a fresh map: a pass's
-#: host clock spreads by several tenths of a second between runs
-BAL_PASSES = 3
-BAL_SAMPLE = 4096
+#: host clock spreads by several tenths of a second between runs; one pass
+#: for the 1200 s limit, the pass under torch.profiler a second reading
+BAL_PASSES = 1
+#: PGs a pool sampled for the scalar check, a cut for the 1200 s limit
+BAL_SAMPLE = 1024
 BAL_SCENARIO = dict(n_osd=BAL_OSDS, rep_pg_num=BAL_REP_PGS, ec_pg_num=BAL_EC_PGS,
                     seed=1, epochs=1, max_changes=BAL_CHANGES)
 PSIM_ARGV = ["--scenario", "--osds", str(BAL_OSDS), "--rep-pgs", str(BAL_REP_PGS),
@@ -1364,18 +1418,18 @@ def run_psim(psim, argv) -> tuple[str, float]:
 def phase_balancer_main(psim, BalancerModule, build_cluster, compile_crushmap) -> dict:
     """Phase 11: psim's scenario and both balancer modes, as a user runs them."""
     first, s1 = run_psim(psim, PSIM_ARGV)
-    second, s2 = run_psim(psim, PSIM_ARGV)
-    print(f"  psim {' '.join(PSIM_ARGV)}: {s1:.4f} s, again {s2:.4f} s, reports "
-          f"byte-identical {first == second}", flush=True)
-    if first != second:
+    # the second run is --measure's: its report is the first's plus "timing"
+    measured, s2 = run_psim(psim, PSIM_ARGV + ["--measure"])
+    report, again = json.loads(first), json.loads(measured)
+    timing = again.pop("timing")
+    print(f"  psim {' '.join(PSIM_ARGV)}: {s1:.4f} s, again with --measure {s2:.4f} s, "
+          f"reports equal but for its timing {again == report}", flush=True)
+    if again != report:
         raise AssertionError("psim's scenario report is not deterministic")
-    report = json.loads(first)
     print(f"  report: pg_instances {report['pg_instances']}, epochs "
           f"{[(e['pgs_moved'], len(e['events'])) for e in report['epochs']]}, "
           f"balance {report['balance']}, final_spread {report['final_spread']}", flush=True)
-    measured, s3 = run_psim(psim, PSIM_ARGV + ["--measure"])
-    timing = json.loads(measured)["timing"]
-    print(f"  psim --measure: {s3:.4f} s, timing {timing}", flush=True)
+    print(f"  psim --measure timing {timing}", flush=True)
 
     out = {"report": report, "timing": timing}
     for mode in ("upmap", "crush-compat"):
@@ -1697,8 +1751,9 @@ def phase_balancer_times(uc, balance, tm, build_cluster, BalancerModule, OSDMap,
 #: (name, plugin, profile, erasure sets as physical ids, objects per batch).
 #: clay's plane schedule and pairwise coupling are host numpy (as in the JAX
 #: package), about 0.5 s per 4 MiB object and pass on the H100 machine's
-#: host: its batch is cut to 8 objects, every width kept (PERF.md section 4)
-CLAY_OBJECTS = 8
+#: host: its batch is cut to 4 objects for the 1200 s limit, every width
+#: kept (PERF.md section 4)
+CLAY_OBJECTS = 4
 FAMILIES = [
     ("shec", "shec", {"k": "4", "m": "3", "c": "2"}, [(0, 5)], OBJECTS),
     ("lrc", "lrc", {"k": "4", "m": "2", "l": "3"}, [(0,), (0, 1)], OBJECTS),
@@ -2132,13 +2187,16 @@ def phase_family_times(bp, gc, bmx, codecs, rs_codec, smi: str) -> dict:
             # several calls in one window: a window of one short call came
             # back from torch.profiler with no device events at all; the
             # launches it saw are printed beside the calls made
-            wall, busy = profiled(lambda: [fn() for _ in range(reps * 3)])
+            # (clay's window cut to one call of its several seconds: the
+            # smoke's time limit)
+            calls = 1 if name == "clay" else reps * 3
+            wall, busy = profiled(lambda: [fn() for _ in range(calls)])
             device_ms = sum(ms for _n, ms in busy.values())
             kern_ms = sum(ms for kname, (_n, ms) in busy.items()
                           if any(k in kname for k in FAMILY_KERNELS))
             launches = sum(c for kname, (c, _ms) in busy.items()
                            if any(k in kname for k in FAMILY_KERNELS))
-            parts.append(f"{what} x{reps * 3} under torch.profiler {wall * 1e3:.3f} ms: "
+            parts.append(f"{what} x{calls} under torch.profiler {wall * 1e3:.3f} ms: "
                          f"device busy {device_ms:.3f} ms, of it the new kernels "
                          f"{kern_ms:.3f} ms in {launches} launches seen; idle share "
                          f"{1 - device_ms / (wall * 1e3):.5f}")
@@ -2474,17 +2532,25 @@ def phase_rados_main(bp, factory, smi: str) -> dict:
     return {"launches": total, "times": times}
 
 
+def _rados_view(device: str) -> tuple[dict, dict, float]:
+    """Phase 16b's sequence at RADOS_IDENTITY_OBJECTS objects a pool on
+    `device`: (every store's view, the shards recovered, seconds)."""
+    objects = rados_objects(SEED + 1, RADOS_IDENTITY_OBJECTS)
+    c = rados_cluster(device)
+    t = time.perf_counter()
+    out = rados_sequence(c, objects)
+    return store_view(c), out["recovered"], time.perf_counter() - t
+
+
 def phase_rados_identity() -> None:
     """Phase 16b: the same sequence at RADOS_IDENTITY_OBJECTS objects a pool
-    on the card and on the CPU: every store ends equal (keys, bytes, hinfo,
-    version stamps)."""
-    objects = rados_objects(SEED + 1, RADOS_IDENTITY_OBJECTS)
-    views = []
-    for device in ("cuda", "cpu"):
-        c = rados_cluster(device)
-        t = time.perf_counter()
-        out = rados_sequence(c, objects)
-        views.append((store_view(c), out["recovered"], time.perf_counter() - t))
+    on the card and on the CPU (in a worker process, beside the card's):
+    every store ends equal (keys, bytes, hinfo, version stamps)."""
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        cpu = pool.submit(in_workers, "_rados_view", ["cpu"])
+        views = [_rados_view("cuda"), cpu.result()[0]]
     if views[0][0] != views[1][0] or views[0][1] != views[1][1]:
         raise AssertionError("the card cluster's stores differ from the CPU cluster's")
     keys = sum(len(v) for v in views[0][0].values())
@@ -2556,10 +2622,13 @@ def phase_native_and_tools(factory, smi: str) -> None:
 #: process over loopback; pool 1 isa k=8 m=3 cauchy, pool 2 replicated
 DAEMON_OSDS = 12
 DAEMON_EC_PROFILE = {"plugin": "isa", "k": str(K), "m": str(M), "technique": "cauchy"}
-DAEMON_PG_NUM = {EC_POOL: 64, REP_POOL: 32}
-#: 64 pool-1 objects (once 128; halved when the multi-process phase joined
-#: the smoke, to keep its whole run near its earlier length)
-DAEMON_OBJECTS = {EC_POOL: 64, REP_POOL: 16}
+#: a cut for the 1200 s limit: every map epoch makes each of the 12 OSDs
+#: place every PG with the scalar mapper on the one loop (at 64 + 32 PGs the
+#: cluster's start took 85 s and its recovery 62 s on the card)
+DAEMON_PG_NUM = {EC_POOL: 16, REP_POOL: 8}
+#: pool-1 and pool-2 objects, cut as the smoke grew to keep its whole run
+#: inside the 1200 s limit
+DAEMON_OBJECTS = {EC_POOL: 32, REP_POOL: 8}
 DAEMON_CONCURRENCY = 32
 DAEMON_PARTIAL = 8
 #: full rewrites of pool-1 objects traced (spans), then under torch.profiler
@@ -2867,7 +2936,7 @@ async def daemon_sequence(gc, cluster: DaemonCluster, objects: dict, smi: str) -
                 raise AssertionError(f"read {key} returned other bytes")
         return call
 
-    # write window: 64 EC puts, 16 replicated, 8 partial overwrites, 16
+    # write window: 32 EC puts, 8 replicated, 8 partial overwrites, 16
     # traced rewrites, 16 profiled rewrites
     watch.start()
     t = time.perf_counter()
@@ -3032,7 +3101,12 @@ def check_daemon_stores(cluster: DaemonCluster, want: dict, factory) -> int:
 #: Face `gpt2` config): n_layer 12, n_embd 768, n_head 12, vocab 50257,
 #: n_positions 1024
 GPT2 = {"n_layer": 12, "n_embd": 768, "n_head": 12, "vocab": 50257, "n_positions": 1024}
-GPT2_PARAMS = 124_439_808
+#: the checkpoint windows (phases 18 and 21) save the first 6 of its 12
+#: blocks at their full widths, a depth cut for the 1200 s limit
+CKPT_LAYERS = 6
+#: wte, wpe and ln_f, and 12 e^2 + 13 e in each block
+GPT2_PARAMS = (GPT2["vocab"] + GPT2["n_positions"] + 2) * GPT2["n_embd"] + CKPT_LAYERS * (
+    12 * GPT2["n_embd"] ** 2 + 13 * GPT2["n_embd"])
 CKPT_NAME = "gpt2"
 #: chunk objects of 4 MiB (phase 18's object size, a multiple of the pool's
 #: k x stripe_unit alignment) written 32 at a time (its write concurrency)
@@ -3045,11 +3119,12 @@ CKPT_SHARDED = ("wte", "wpe", "c_fc.weight", "mlp.c_proj.weight")
 
 
 def gpt2_shapes() -> dict[str, tuple[int, ...]]:
-    """{dotted name: shape} of GPT-2 small's parameters (Conv1D weights as
-    Hugging Face stores them, lm_head tied to wte)."""
+    """{dotted name: shape} of GPT-2 small's parameters in its first
+    CKPT_LAYERS blocks (Conv1D weights as Hugging Face stores them, lm_head
+    tied to wte)."""
     e, v, p = GPT2["n_embd"], GPT2["vocab"], GPT2["n_positions"]
     shapes = {"wte": (v, e), "wpe": (p, e)}
-    for i in range(GPT2["n_layer"]):
+    for i in range(CKPT_LAYERS):
         for name, shape in (("ln_1.weight", (e,)), ("ln_1.bias", (e,)),
                             ("attn.c_attn.weight", (e, 3 * e)), ("attn.c_attn.bias", (3 * e,)),
                             ("attn.c_proj.weight", (e, e)), ("attn.c_proj.bias", (e,)),
@@ -3066,8 +3141,9 @@ def gpt2_state(sh, mesh, gen: torch.Generator, only: str = "") -> dict:
     {dotted name: tensor}}; the CKPT_SHARDED tensors are MeshArrays on
     `mesh` with spec ("stripe", None). `only` keeps the names that start
     with it. Cut from the full training state: Adam's two moments would
-    triple the 498 MB (1.49 GB), and with them the window took 155 s on the
-    H100, which would put the smoke more than 120 s past its earlier time."""
+    triple the 498 MB of all 12 blocks (1.49 GB), and with them the window
+    took 155 s on the H100, which would put the smoke more than 120 s past
+    its earlier time."""
     shapes = {n: s for n, s in gpt2_shapes().items() if n.startswith(only)}
 
     def leaf(name):
@@ -3144,7 +3220,7 @@ async def ckpt_window(cluster: DaemonCluster, watch, smi: str) -> dict:
         raise AssertionError(f"the GPT-2 small state holds {nbytes} B")
     chunk = layout.chunk_bytes(CKPT_CONFIG["ckpt_chunk_target_bytes"],
                                layout.pool_alignment(cluster.rados.objecter.osdmap, EC_POOL))
-    print(f"  GPT-2 small {GPT2} parameters: {len(records)} "
+    print(f"  GPT-2 small {GPT2} parameters, its first {CKPT_LAYERS} blocks: {len(records)} "
           f"float32 tensors, {nbytes} B, made on the card in {time.perf_counter() - t:.2f} s; "
           f"chunk objects of {chunk} B", flush=True)
     out = {"bytes": nbytes}
@@ -3393,8 +3469,11 @@ def phase_mesh_times(bp, sh, codec, smi: str) -> dict:
 # -- phase 20: the multi-process cluster --------------------------------------------
 
 MP_MONS, MP_OSDS = 3, 12
-MP_PG_NUM = {EC_POOL: 64, REP_POOL: 32}
-MP_OBJECTS = {EC_POOL: 128, REP_POOL: 16}
+#: a cut for the 1200 s limit (each OSD process re-places every PG at each
+#: map epoch)
+MP_PG_NUM = {EC_POOL: 32, REP_POOL: 16}
+#: pool-1 and pool-2 objects, a cut for the 1200 s limit
+MP_OBJECTS = {EC_POOL: 64, REP_POOL: 16}
 MP_CLIENTS = 4
 #: client ops in flight, over all client processes
 MP_CONCURRENCY = 32
@@ -3475,7 +3554,7 @@ class MPCluster:
         status = await self.osd_admin("status")
         perf = await self.osd_admin("perf dump")
         return {osd: (status[osd]["ec_launches"], status[osd]["ec_objects"],
-                      perf[osd]["kernels"]["gf_matmul_packed"],
+                      perf[osd][f"kernels.osd.{osd}"]["gf_matmul_packed"],
                       perf[osd][f"osd.{osd}"].get("recovery_pushes", 0))
                 for osd in status}
 
@@ -3806,17 +3885,19 @@ def phase_multiprocess(factory, decompile_crushmap, smi: str) -> dict:
               f"{time.perf_counter() - t:.3f} s; run dir {run_dir}", flush=True)
         try:
             out = asyncio.run(asyncio.wait_for(mp_sequence(v, decompile_crushmap, smi), 1200))
-            print("phase 21: the training fleet and the dataset store on this cluster",
-                  flush=True)
+            phase("phase 21: the training fleet and the dataset store on this cluster")
             fleet = asyncio.run(asyncio.wait_for(fleet_sequence(v, smi), 900))
+            phase("phase 22: the manager daemon on this cluster")
+            mgr = asyncio.run(asyncio.wait_for(mgr_sequence(v, smi), 600))
         except BaseException:
             for name in v.exited() or ("mon.0", "osd.0"):
                 print(f"  {name}'s log ends:\n{v.log_tail(name)}", flush=True)
             raise
         finally:
             rcs = v.stop(signal.SIGTERM)
-        print(f"  SIGTERM to every daemon: exit codes {rcs}", flush=True)
-        if any(rcs.values()) or len(rcs) != MP_MONS + MP_OSDS:
+        print(f"  SIGTERM to every daemon: exit codes {rcs} (at {time.perf_counter() - T0:.1f} s)",
+              flush=True)
+        if any(rcs.values()) or len(rcs) != MP_MONS + MP_OSDS + 1:
             raise AssertionError(f"a daemon did not stop cleanly: {rcs}")
         names = ("EncodeService launches", "objects", "B1 wrapper launches", "pushes")
         for window, counts in out["launches"].items():
@@ -3836,7 +3917,7 @@ def phase_multiprocess(factory, decompile_crushmap, smi: str) -> dict:
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
     return {"launches": sum(c[2] for c in out["launches"].values()), "times": out["times"],
-            "fleet": fleet}
+            "fleet": fleet, "mgr": mgr}
 
 
 def phase_multiprocess_bench(smi: str) -> None:
@@ -3869,7 +3950,11 @@ DS_BATCH = 12
 #: the pass without the prefetch pipeline reads this many batches a host, a
 #: cut: on the card 4 hosts read 318-363 records/s without prefetch, so a
 #: whole epoch would take over 3 minutes
-DS_NOPREFETCH_BATCHES = 64
+DS_NOPREFETCH_BATCHES = 16
+#: the pass with it reads this many batches a host (of the epoch's 1,366), a
+#: cut: the whole epoch took 96 s on the card and 256 batches 18 s, and the
+#: smoke's later phases need the time
+DS_PREFETCH_BATCHES = 64
 FLEET_NAME = "gpt2-fleet"
 #: tests/test_fleet_live.py's failover shape: records, steps before and after
 #: the committed save, batch, seed and lease
@@ -3893,16 +3978,20 @@ def ds_host_ids() -> list[np.ndarray]:
 
 def _ds_host(job):
     """Worker: one training host of phase 21 reading its share of the
-    dataset's epoch, every batch checked against the source records at the
-    ids ds_host_ids gives; without prefetch, DS_NOPREFETCH_BATCHES batches.
-    Returns its window, records read and the store's counters."""
+    dataset's epoch twice, every batch checked against the source records
+    at the ids ds_host_ids gives: DS_PREFETCH_BATCHES batches with the
+    prefetch pipeline, then (once every host has written its marker file
+    beside the cluster's spec) DS_NOPREFETCH_BATCHES without it, on a new
+    client. Returns each pass's window, records read and store counters."""
     from ceph_tpu_torch.vstart import ClusterSpec
 
-    spec_path, h, prefetch = job
+    spec_path, h = job
     spec = ClusterSpec.load(spec_path)
     tokens, want = ds_tokens(), ds_host_ids()[h]
+    marker = os.path.join(os.path.dirname(spec_path), "ds-pass-1.{}")
 
-    async def run():
+    async def run(prefetch):
+        batches = DS_PREFETCH_BATCHES if prefetch else DS_NOPREFETCH_BATCHES
         from ceph_tpu_torch.data import DataStore
         from ceph_tpu_torch.rados.client import Rados
 
@@ -3920,15 +4009,22 @@ def _ds_host(job):
                 raise AssertionError(f"host {h}: batch at position {pos} differs from the "
                                      "source records at its ids")
             pos += len(batch)
-            if not prefetch and pos == DS_NOPREFETCH_BATCHES * DS_BATCH:
+            if pos == batches * DS_BATCH:
                 break
         t1 = time.time()
-        if pos != (len(want) if prefetch else min(len(want), DS_NOPREFETCH_BATCHES * DS_BATCH)):
+        if pos != min(len(want), batches * DS_BATCH):
             raise AssertionError(f"host {h} read {pos} of {len(want)} records")
         await rados.shutdown()
         return {"window": (t0, t1), "records": pos, "perf": st.perf_dump()}
 
-    return asyncio.run(asyncio.wait_for(run(), 600))
+    first = asyncio.run(asyncio.wait_for(run(True), 600))
+    open(marker.format(h), "w").close()
+    end = time.monotonic() + 300
+    while not all(os.path.exists(marker.format(i)) for i in range(FLEET_HOSTS)):
+        if time.monotonic() > end:
+            raise AssertionError(f"host {h}: the other hosts never finished the first pass")
+        time.sleep(0.05)
+    return first, asyncio.run(asyncio.wait_for(run(False), 600))
 
 
 async def port_tool(v, tool: str, *argv: str, stderr=None):
@@ -3991,11 +4087,14 @@ async def dataset_window(v, c, smi: str) -> dict:
           f"{len(verify['shards'])} shards crc-clean, {time.perf_counter() - t:.3f} s",
           flush=True)
 
-    for label, prefetch in (("with prefetch", True), ("prefetch 0", False)):
-        jobs = [(v.spec_path, h, prefetch) for h in range(FLEET_HOSTS)]
-        t = time.perf_counter()
-        res = await asyncio.to_thread(in_workers, "_ds_host", jobs)
-        wall = time.perf_counter() - t
+    # both passes in the same FLEET_HOSTS processes, the second started when
+    # every host has ended the first
+    t = time.perf_counter()
+    passes = await asyncio.to_thread(in_workers, "_ds_host",
+                                     [(v.spec_path, h) for h in range(FLEET_HOSTS)])
+    wall = time.perf_counter() - t
+    for i, (label, prefetch) in enumerate((("with prefetch", True), ("prefetch 0", False))):
+        res = [p[i] for p in passes]
         secs = max(r["window"][1] for r in res) - min(r["window"][0] for r in res)
         read = sum(r["records"] for r in res)
         hits = sum(r["perf"]["cache_hit_blocks"] for r in res)
@@ -4005,10 +4104,12 @@ async def dataset_window(v, c, smi: str) -> dict:
         out[key] = {"gbps": read * DS_TOKENS * 2 / secs / 1e9, "s": secs, "records": read,
                     "records_per_s": read / secs, "hit_rate": rate,
                     "fetch_bytes": sum(r["perf"]["fetch_bytes"] for r in res)}
-        cut = "" if prefetch else f" (cut to {DS_NOPREFETCH_BATCHES} batches a host)"
+        cut = f" (cut to {DS_PREFETCH_BATCHES if prefetch else DS_NOPREFETCH_BATCHES} batches a host)"
+        whole = (f"{wall:.3f} s for both passes with the processes' start" if prefetch
+                 else "the same processes")
         print(f"  [{smi}] epoch read by {FLEET_HOSTS} host processes at batch {DS_BATCH}, "
               f"{label}: {secs:.3f} s from the first batch asked to the last{cut} "
-              f"({wall:.3f} s with the processes' start), {out[key]['gbps']:.4f} GB/s, "
+              f"({whole}), {out[key]['gbps']:.4f} GB/s, "
               f"{out[key]['records_per_s']:.1f} records/s, {out[key]['fetch_bytes']} B "
               f"fetched, block cache {hits} hits / {fetched} fetches (hit rate {rate:.4f}); "
               f"every record equal to its source at the ids epoch_permutation and "
@@ -4256,7 +4357,351 @@ async def fleet_sequence(v, smi: str) -> dict:
     return out
 
 
+# -- phase 22: the manager daemon, the chaos harness and the recovery A/B ------------
+
+#: the `ceph top` write window on phase 20's cluster: objects a pool
+MGR_TOP_WRITES = {EC_POOL: 16, REP_POOL: 16}
+#: tests/test_mgr_live.py's slack for client-side retries in `ceph top`'s count
+MGR_TOP_SLACK = 5
+#: a traced op slower than this is kept by the tail sampler and reaches the mgr
+MGR_TAIL_SLOW_MS = 20
+#: the daemon-free chaos replays (ceph_tpu_torch.sim.run_chaos at its defaults:
+#: 16 OSDs, 48 PGs) and the live run (chaos_tool's cluster: 3 mons, 6 OSDs, a
+#: tpu k=2 m=2 pool and a size-3 pool, objects of 64-2047 B)
+CHAOS_SEEDS = (1, 7)
+CHAOS_LIVE_SEED, CHAOS_LIVE_STEPS = 1, 8
+#: B1's widths in the chaos pool: a 64-2047 B object is 32-1024 B a chunk
+CHAOS_N4 = (1, 7, 64, 257)
+#: `daemon_bench --mgr` on the card, at its defaults
+MGR_BENCH_ARGV = ["--mgr", "--device", "cuda"]
+
+
+async def http_get(port: int, path: str) -> tuple[int, str]:
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"GET {path} HTTP/1.1\r\nHost: 127.0.0.1\r\n\r\n".encode())
+    raw = await asyncio.wait_for(reader.read(), 60)
+    writer.close()
+    head, _, body = raw.partition(b"\r\n\r\n")
+    return int(head.split()[1]), body.decode()
+
+
+SCRAPED_B1 = re.compile(r'^ceph_tpu_daemon_gf_matmul_packed\{daemon="kernels\.osd\.(\d+)"\} '
+                        r'(\d+)$', re.M)
+
+
+async def mgr_cli(v, module: str, *argv: str, stdin: bytes | None = None) -> str:
+    """`python -m ceph_tpu_torch.tools.<module> --mon-host ... argv` on the
+    card's cluster: its stdout (it must exit 0)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    hosts = ",".join(f"{h}:{p}" for h, p in v.spec.monmap().addrs)
+    head = [] if module == "trace_tool" else ["--mon-host", hosts]
+    if module == "ceph":
+        head += ["--device", "cuda"]
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, "-m", f"ceph_tpu_torch.tools.{module}", *head, *argv, cwd=here,
+        stdin=subprocess.PIPE if stdin is not None else None, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE)
+    out, err = await asyncio.wait_for(proc.communicate(stdin), 120)
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} {' '.join(argv)} exited {proc.returncode}:\n"
+                             f"{out.decode()[-2000:]}{err.decode()[-2000:]}")
+    return out.decode()
+
+
+def top_ops(doc: dict) -> int:
+    return sum(r["totals"].get("op_w", 0) for r in doc["daemons"])
+
+
+async def mgr_sequence(v, smi: str) -> dict:
+    """Phase 22's manager window on phase 20's cluster: a mgr process on the
+    card, every OSD's report in its Prometheus scrape (each OSD's B1 count
+    equal to its perf dump), `ceph top --json` counting a write window's
+    client ops, and a tail-captured traced write rendered by trace_tool from
+    `ceph trace show`. Returns B1's launches in the write windows and the
+    times."""
+    from ceph_tpu_torch.rados.client import Rados
+    from ceph_tpu_torch.tools.ceph_top import TopClient
+
+    rados = v.client("client.mgr")
+    await rados.connect()
+    c = MPCluster(v, rados)
+    loop = asyncio.get_running_loop()
+    t = time.perf_counter()
+    v.start_daemon("mgr", 0)
+    port = await asyncio.to_thread(v.daemon_port, "mgr", 0, 120)
+    end = loop.time() + 120
+    while True:
+        want = {osd: n[2] for osd, n in (await c.counts()).items()}
+        t0 = time.perf_counter()
+        status, text = await http_get(port, "/metrics")
+        scrape_ms = (time.perf_counter() - t0) * 1e3
+        got = {int(osd): int(n) for osd, n in SCRAPED_B1.findall(text)}
+        if status == 200 and got == want:
+            break
+        if loop.time() > end:
+            raise AssertionError(f"the mgr's scrape (HTTP {status}) never held every OSD's "
+                                 f"B1 count: scraped {got}, perf dump {want}")
+        await asyncio.sleep(0.5)
+    up_s = time.perf_counter() - t
+    mm = (await rados.mon_command("mgr map"))["mgrmap"]
+    if mm["active"] != "mgr.0" or len(got) != MP_OSDS:
+        raise AssertionError(f"mgr map {mm}; scraped OSDs {sorted(got)}")
+    out = {"times": {"up_s": up_s, "scrape_ms": scrape_ms, "series": text.count("\n")}}
+    print(f"  [{smi}] mgr.0 spawned by VStart (its own process on the card), active, and its "
+          f"/metrics listing every OSD's report {up_s:.3f} s later (at "
+          f"{time.perf_counter() - T0:.1f} s); a scrape of "
+          f"{text.count(chr(10))} series in {scrape_ms:.3f} ms; each OSD's scraped "
+          f"gf_matmul_packed count equals its perf dump: {dict(sorted(got.items()))}",
+          flush=True)
+
+    # `ceph top --json` over a write window
+    top0 = json.loads(await mgr_cli(v, "ceph_top", "--json"))
+    io = {pool: rados.io_ctx(pool) for pool in MGR_TOP_WRITES}
+    keys = [(pool, 4096 + i) for pool, n in MGR_TOP_WRITES.items() for i in range(n)]
+    before = await c.counts()
+    t = time.perf_counter()
+    await daemon_gather([lambda k=k: io[k[0]].write_full(f"m-{k[0]}-{k[1]}", mp_object(*k))
+                         for k in keys], MP_CONCURRENCY)
+    write_s = time.perf_counter() - t
+    out["launches"] = window_counts("mgr write", c.delta(before, await c.counts()))[2]
+    end = loop.time() + 60
+    while True:
+        doc = json.loads(await mgr_cli(v, "ceph_top", "--json"))
+        ops = top_ops(doc) - top_ops(top0)
+        if ops >= len(keys) or loop.time() > end:
+            break
+        await asyncio.sleep(1.0)
+    if not len(keys) <= ops <= len(keys) + MGR_TOP_SLACK or len(doc["daemons"]) != MP_OSDS:
+        raise AssertionError(f"ceph top counted {ops} writes of {len(keys)} over "
+                             f"{len(doc['daemons'])} daemons")
+    print(f"  [{smi}] {len(keys)} writes ({', '.join(f'{n} to pool {p}' for p, n in MGR_TOP_WRITES.items())}) "
+          f"in {write_s:.3f} s; `ceph_top --json` (its own process) counts {ops} more op_w over "
+          f"its {len(doc['daemons'])} daemon rows (at {time.perf_counter() - T0:.1f} s)",
+          flush=True)
+
+    # a traced write: tail-kept at completion, in the mgr's store, rendered
+    for name, value in (("tracer_enabled", "true"), ("tracer_sample_rate", "0"),
+                        ("tracer_tail_slow_ms", str(MGR_TAIL_SLOW_MS))):
+        await rados.mon_command("config set", {"name": name, "value": value})
+    cfg = v.spec.build_config()
+    for name, value in (("tracer_enabled", True), ("tracer_sample_rate", 0.0),
+                        ("tracer_tail_slow_ms", float(MGR_TAIL_SLOW_MS))):
+        cfg.set(name, value)
+    traced = Rados("client.traced", v.spec.monmap(), config=cfg, device="cuda")
+    await traced.connect()
+    await asyncio.sleep(2.0)  # the config map reaches every OSD
+    key = (EC_POOL, 8192)
+    await traced.io_ctx(EC_POOL).write_full(f"m-{key[0]}-{key[1]}", mp_object(*key))
+    root = next(sp for sp in reversed(list(traced.objecter.tracer._flight))
+                if getattr(sp, "name", None) == "op_submit"
+                and sp.tags.get("object") == f"m-{key[0]}-{key[1]}")
+    # polled in this process through the client `ceph trace ls` uses (each
+    # `ceph` process opens the card); then `ceph trace show`, the CLI
+    top = TopClient(v.spec.monmap(), name="client.mgr.trace")
+    try:
+        end = loop.time() + 60
+        while True:
+            ls = await top.fetch("trace ls")
+            if any(tr["trace_id"] == root.trace_id for tr in ls["traces"]):
+                break
+            if loop.time() > end:
+                raise AssertionError(f"trace {root.trace_id} ({root.duration * 1e3:.3f} ms) "
+                                     f"never reached the mgr: {ls}")
+            await asyncio.sleep(1.0)
+    finally:
+        await top.close()
+    shown = await mgr_cli(v, "ceph", "trace", "show", root.trace_id)
+    tree = await mgr_cli(v, "trace_tool", "-", stdin=shown.encode())
+    doc = json.loads(shown)
+    if f"trace {root.trace_id}" not in tree or "critical path" not in tree:
+        raise AssertionError(f"trace_tool did not render the trace:\n{tree}")
+    for name in ("tracer_enabled", "tracer_sample_rate", "tracer_tail_slow_ms"):
+        await rados.mon_command("config rm", {"name": name})
+    await traced.shutdown()
+    print(f"  a traced {OBJECT_BYTES} B write of {root.duration * 1e3:.3f} ms kept by the tail "
+          f"sampler: `ceph trace show` gives {doc['num_spans']} spans from "
+          f"{doc['daemons']}, and trace_tool renders its tree ({len(tree.splitlines())} lines; "
+          f"at {time.perf_counter() - T0:.1f} s):", flush=True)
+    for line in tree.splitlines()[:40]:
+        print(f"    {line}", flush=True)
+    await rados.shutdown()
+    return out
+
+
+def _chaos_cpu(seed: int) -> tuple[str, float]:
+    """Worker: run_chaos(seed) on the CPU, as sorted JSON text, and its
+    seconds."""
+    torch.set_num_threads(2)
+    from ceph_tpu_torch.sim import run_chaos
+
+    t = time.perf_counter()
+    report = json.dumps(run_chaos(seed, device="cpu"), sort_keys=True)
+    return report, time.perf_counter() - t
+
+
+def chaos_shards_checker(factory, pool: int, result: dict):
+    """on_settled hook for run_chaos_live: every stored shard of `pool` on
+    every OSD equals the chunk the CPU tpu codec makes of what the object
+    reads back."""
+    cpu = factory("tpu", {"k": "2", "m": "2"}, device="cpu")
+    n = cpu.get_chunk_count()
+
+    async def check(cluster, rados):
+        stored: dict[str, list] = {}
+        for osd_id, osd in cluster.osds.items():
+            for coll in osd.store.list_collections():
+                if not coll.startswith(f"pg_{pool}_"):
+                    continue
+                for obj in osd.store.list_objects(coll):
+                    base, sep, pos = obj.rpartition(".s")
+                    if sep and pos.isdigit():
+                        stored.setdefault(base, []).append((osd_id, coll, obj, int(pos)))
+        io = rados.io_ctx(pool)
+        for name, shards in sorted(stored.items()):
+            chunks = cpu.encode(range(n), await io.read(name))
+            for osd_id, coll, obj, pos in shards:
+                if cluster.osds[osd_id].store.read(coll, obj) != chunks[pos]:
+                    raise AssertionError(f"osd.{osd_id} {obj} differs from the CPU tpu "
+                                         "codec's chunk")
+        result["objects"], result["shards"] = len(stored), sum(map(len, stored.values()))
+
+    return check
+
+
+@contextlib.contextmanager
+def raised_calls(cls, names=("encode_words", "decode_words")):
+    """Patches `cls`'s codec methods to note every call that raised."""
+    raised: list[str] = []
+    saved = {name: getattr(cls, name) for name in names}
+
+    def watched(name, fn):
+        def call(self, *args):
+            try:
+                return fn(self, *args)
+            except Exception as e:
+                raised.append(f"{name}: {e!r}")
+                raise
+        return call
+
+    for name, fn in saved.items():
+        setattr(cls, name, watched(name, fn))
+    try:
+        yield raised
+    finally:
+        for name, fn in saved.items():
+            setattr(cls, name, fn)
+
+
+def phase_chaos(gc, cc, factory, smi: str) -> dict:
+    """Phase 22's chaos harness on the card: run_chaos's replays (B6 maps
+    the pools), chaos_tool's live run (B1 in the EC pool; every oracle, and
+    every stored shard against the CPU codec), the recovery A/B, and
+    `daemon_bench --mgr`. Returns the launches of B1 and B6 in their
+    windows and the figures."""
+    from ceph_tpu_torch.ec.rs import ErasureCodeRs
+    from ceph_tpu_torch.sim import run_chaos
+    from ceph_tpu_torch.tools import chaos_tool, daemon_bench
+
+    import concurrent.futures
+
+    out = {}
+    cc.crush_choose.launches = 0
+    t = time.perf_counter()
+    card = [json.dumps(run_chaos(seed, device="cuda"), sort_keys=True) for seed in CHAOS_SEEDS]
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    out["b6"] = cc.crush_choose.launches
+    if out["b6"] < 1:
+        raise AssertionError("run_chaos never launched crush_choose")
+    # the CPU's reports, in worker processes while the live run goes on
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        t_cpu = time.perf_counter()
+        cpu_runs = pool.submit(in_workers, "_chaos_cpu", list(CHAOS_SEEDS))
+
+        checked: dict = {}
+        gc.gf_matmul_packed.launches = 0
+        t = time.perf_counter()
+        with raised_calls(ErasureCodeRs) as raised:
+            report = asyncio.run(asyncio.wait_for(chaos_tool.run_chaos_live(
+                CHAOS_LIVE_SEED, steps=CHAOS_LIVE_STEPS, progress=lambda line: print(
+                    f"    {line}", flush=True), device="cuda",
+                on_settled=chaos_shards_checker(factory, chaos_tool.EC_POOL, checked)), 600))
+        torch.cuda.synchronize()
+        live_s = time.perf_counter() - t
+        out["b1"] = gc.gf_matmul_packed.launches
+        out["live"] = {k: report[k] for k in ("p99_s", "client_ops", "acked_keys",
+                                              "starved_steps", "scrub_errors", "lost")}
+        out["live"]["seconds"] = live_s
+        print(f"  [{smi}] chaos_tool seed {CHAOS_LIVE_SEED}, {CHAOS_LIVE_STEPS} steps on the card: "
+              f"{live_s:.3f} s; client p99 {report['p99_s']} s (budget {report['p99_budget_s']}), "
+              f"{report['client_ops']} client ops, {report['acked_keys']} keys, lost "
+              f"{report['lost']}, scrub errors {report['scrub_errors']}, starved steps "
+              f"{report['starved_steps']} (report ok {report['ok']}); executed "
+              f"{report['executed']}; gf_matmul_packed launches {out['b1']}, calls that raised "
+              f"{len(raised)} {raised[:3]}; {checked.get('shards')} stored shards of "
+              f"{checked.get('objects')} pool-{chaos_tool.EC_POOL} objects equal the CPU tpu "
+              f"codec's chunks", flush=True)
+        # step 0 starves in ceph_tpu's run of this seed too (ROADMAP C)
+        if (report["lost"] or report["scrub_errors"] or report["p99_s"] > report["p99_budget_s"]
+                or not set(report["starved_steps"]) <= {0}):
+            raise AssertionError(f"a chaos oracle failed on the card: {report}")
+        if out["b1"] < 1 or raised or not checked.get("shards"):
+            raise AssertionError(f"B1 launches {out['b1']}, raised {raised}, checked {checked}")
+        cpu = [report for report, _s in cpu_runs.result()]
+        cpu_s = [round(s, 3) for _r, s in cpu_runs.result()]
+        wait_s = time.perf_counter() - t_cpu
+    if cpu != card:
+        raise AssertionError("run_chaos on the card differs from the CPU's: seeds "
+                             f"{[s for s, a, b in zip(CHAOS_SEEDS, card, cpu) if a != b]}")
+    print(f"  run_chaos seeds {list(CHAOS_SEEDS)} (16 OSDs, 48 PGs, 11 steps): reports on the "
+          f"card equal the CPU's; {card_s:.3f} s on the card, {cpu_s} s on the CPU (a worker "
+          f"process each, beside the live run; {wait_s:.3f} s to both results); "
+          f"crush_choose launches {out['b6']}",
+          flush=True)
+
+    gc.gf_matmul_packed.launches = 0
+    t = time.perf_counter()
+    rec = daemon_bench.run(["--recovery", "--device", "cuda"])
+    torch.cuda.synchronize()
+    out["recovery"] = rec
+    print(f"  [{smi}] daemon_bench --recovery --device cuda ({rec['objects']} objects of 2 KiB "
+          f"in the replicated pool) in {time.perf_counter() - t:.3f} s: serial "
+          f"{rec['serial']}, batched {rec['batched']}, speedup {rec['speedup']}; "
+          f"gf_matmul_packed launches {gc.gf_matmul_packed.launches} (the pool is "
+          f"replicated)", flush=True)
+    for leg in ("serial", "batched"):
+        if rec[leg]["healed_objects"] < 1:
+            raise AssertionError(f"the {leg} leg healed nothing: {rec}")
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    argv = [sys.executable, "-m", "ceph_tpu_torch.tools.daemon_bench", *MGR_BENCH_ARGV]
+    t = time.perf_counter()
+    proc = subprocess.run(argv, cwd=here, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"daemon_bench --mgr exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    line = json.loads(proc.stdout.splitlines()[-1])
+    if line["mgr"]["daemons_reporting"] != line["osds"] or line["launches"] < 1:
+        raise AssertionError(f"daemon_bench --mgr: {line}")
+    out["mgr_bench"] = line["mgr"]
+    print(f"  [{smi}] daemon_bench {' '.join(MGR_BENCH_ARGV)} in "
+          f"{time.perf_counter() - t:.2f} s (its process included): write "
+          f"{line['write_gbps']} GB/s, {line['launches']} EncodeService launches, mgr "
+          f"{line['mgr']}", flush=True)
+    return out
+
+
+#: when main started, for the phase lines' timestamps
+T0 = time.perf_counter()
+
+
+def phase(text: str) -> None:
+    print(f"{text} (at {time.perf_counter() - T0:.1f} s)", flush=True)
+
+
 def main() -> int:
+    global T0
+    T0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; a CUDA card is "
               "required", file=sys.stderr)
@@ -4282,7 +4727,7 @@ def main() -> int:
     from ceph_tpu_torch.sim import build_cluster
     from ceph_tpu_torch.tools import crush_bench, crushtool, ec_bench, psim
 
-    print("phase 1: device", flush=True)
+    phase("phase 1: device")
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = nvidia_smi_line()
@@ -4293,7 +4738,7 @@ def main() -> int:
     print(f"  compute mode: {mode} (the multi-process phase opens the card from every "
           "daemon process)", flush=True)
 
-    print("phase 2: build", flush=True)
+    phase("phase 2: build")
     t0 = time.perf_counter()
     libs = cuda_build.build()
     print(f"  built {sorted(libs)} in {time.perf_counter() - t0:.2f} s", flush=True)
@@ -4302,11 +4747,11 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
-    print("phase 3: kernel vs plain on the card", flush=True)
+    phase("phase 3: kernel vs plain on the card")
     codec = factory("isa", dict(PROFILE))
     max_err, packed_variants = phase_kernels(gc, gf, codec, factory)
 
-    print("phase 4: main path", flush=True)
+    phase("phase 4: main path")
     gc.gf_matmul_packed.launches = 0
     objs, encoded = phase_main_path(codec, es.EncodeService, ec_bench)
     torch.cuda.synchronize()
@@ -4316,15 +4761,15 @@ def main() -> int:
         raise AssertionError("the main path never launched gf_matmul_packed")
     check_outputs(codec, gf, objs, encoded[0])
 
-    print("phase 5: times", flush=True)
+    phase("phase 5: times")
     times = phase_times(gc, codec, es, smi)
 
-    print("phase 6: crush kernel vs plain on the card", flush=True)
+    phase("phase 6: crush kernel vs plain on the card")
     big = crush_bench.build_map(CRUSH_OSDS)
     cb.make_simple_rule(big, 1, -1, 1, "indep", 0)
     crush_err = phase_crush_kernels(cc, tm, cb, crush_types, big)
 
-    print("phase 7: crush main path", flush=True)
+    phase("phase 7: crush main path")
     path = os.path.join(cuda_build.BUILD_DIR, "crush_smoke_map.txt")
     with open(path, "w") as f:
         f.write(decompile_crushmap(big))
@@ -4337,18 +4782,18 @@ def main() -> int:
     if crush_launches < 1:
         raise AssertionError("the CRUSH path never launched crush_choose")
 
-    print("phase 8: crush outputs", flush=True)
+    phase("phase 8: crush outputs")
     err, plain_ms = phase_crush_outputs(tm, big, crush_main)
     crush_err = max(crush_err, err)
 
-    print("phase 9: crush times", flush=True)
+    phase("phase 9: crush times")
     crush_times = phase_crush_times(cc, tm, big, crush_main, plain_ms, smi)
 
-    print("phase 10: upmap scoring kernel vs plain on the card", flush=True)
+    phase("phase 10: upmap scoring kernel vs plain on the card")
     upmap_err, round1, spread1 = phase_upmap_kernels(uc, balance, tm, build_cluster,
                                                      crush_bench)
 
-    print("phase 11: balancer main path", flush=True)
+    phase("phase 11: balancer main path")
     cc.crush_choose.launches = 0
     uc.upmap_score.launches = 0
     bal = phase_balancer_main(psim, BalancerModule, build_cluster, compile_crushmap)
@@ -4361,16 +4806,16 @@ def main() -> int:
         raise AssertionError("the balancer path never launched upmap_score or crush_choose")
     check_balancer_outputs(tm, balance, OSDMap, bal, spread1)
 
-    print("phase 12: balancer times", flush=True)
+    phase("phase 12: balancer times")
     upmap_times = phase_balancer_times(uc, balance, tm, build_cluster, BalancerModule, OSDMap,
                                        compile_crushmap, round1, bal, big, crush_main[0]["rows"],
                                        smi)
 
-    print("phase 13: EC family kernels vs plain on the card", flush=True)
+    phase("phase 13: EC family kernels vs plain on the card")
     codecs = family_codecs(factory)
     family_err, bytes_variants = phase_family_kernels(bp, gc, bmx, codecs, codec)
 
-    print("phase 14: EC families main path", flush=True)
+    phase("phase 14: EC families main path")
     new_wrappers = {"gf_matmul_bitplane": bp.gf_matmul_bitplane, "xor_reduce": bp.xor_reduce,
                     "xor_reduce_words": gc.xor_reduce_words,
                     "xor_rowmatmul": bmx.xor_rowmatmul}
@@ -4385,24 +4830,23 @@ def main() -> int:
     if min(family_launches.values()) < 1:
         raise AssertionError(f"the EC families path never launched {family_launches}")
 
-    print("phase 15: EC family times", flush=True)
+    phase("phase 15: EC family times")
     family_times = phase_family_times(bp, gc, bmx, codecs, codec, smi)
 
-    print("phase 16: the RADOS data path (MiniCluster) on the card", flush=True)
+    phase("phase 16: the RADOS data path (MiniCluster) on the card")
     rados = phase_rados_main(bp, factory, smi)
     phase_rados_identity()
 
-    print("phase 17: the native plugin and the EC tools", flush=True)
+    phase("phase 17: the native plugin and the EC tools")
     phase_native_and_tools(factory, smi)
 
-    print("phase 18: the live daemon path (monitors, OSD daemons, client) on the card",
-          flush=True)
+    phase("phase 18: the live daemon path (monitors, OSD daemons, client) on the card")
     bp.gf_matmul_bitplane.launches = 0
     daemon = phase_daemon_path(gc, factory, smi)
     daemon_b3 = bp.gf_matmul_bitplane.launches
     print(f"  gf_matmul_bitplane launches on the daemon path: {daemon_b3}", flush=True)
 
-    print("phase 19: the device mesh (B8) on the card", flush=True)
+    phase("phase 19: the device mesh (B8) on the card")
     b8_launches, b8_err = phase_mesh_main(bp, sh, codec, es, objs, encoded)
     print(f"  gf_matmul_bitplane launches on the mesh path (one per slot): {b8_launches}",
           flush=True)
@@ -4411,21 +4855,26 @@ def main() -> int:
     del objs, encoded
     b8_times = phase_mesh_times(bp, sh, codec, smi)
 
-    print("phase 20: the multi-process cluster (VStart: a process per daemon) on the card",
-          flush=True)
+    phase("phase 20: the multi-process cluster (VStart: a process per daemon) on the card")
     mp = phase_multiprocess(factory, decompile_crushmap, smi)
     print(f"  B1 launches in the OSD processes (their wrappers' counts): phase 20 "
-          f"{mp['launches']}, phase 21 {mp['fleet']['launches']}", flush=True)
+          f"{mp['launches']}, phase 21 {mp['fleet']['launches']}, phase 22's mgr window "
+          f"{mp['mgr']['launches']}", flush=True)
     phase_multiprocess_bench(smi)
 
-    print("phase 22: processes left", flush=True)
+    phase("phase 22 (cont.): the chaos harness, the recovery A/B and daemon_bench --mgr on "
+          "the card")
+    chaos = phase_chaos(gc, cc, factory, smi)
+
+    phase("phase 23: processes left")
 
     kernels = [{
         "name": "gf_matmul_packed",
         "route": "cuda",
         "source": "ceph_tpu_torch/csrc/gf_matmul.cu",
         "replaces": "ceph_tpu/ops/gf_pallas.py:141",
-        "launches": launches + daemon["launches"] + mp["launches"] + mp["fleet"]["launches"],
+        "launches": (launches + daemon["launches"] + mp["launches"] + mp["fleet"]["launches"]
+                     + mp["mgr"]["launches"] + chaos["b1"]),
         "max_abs_err": max_err,
         "ms": times["ms"],
         "held_ms": times["held_ms"],
@@ -4441,7 +4890,7 @@ def main() -> int:
         "route": "cuda",
         "source": "ceph_tpu_torch/csrc/crush_choose.cu",
         "replaces": "ceph_tpu/crush/jax_mapper.py:952",
-        "launches": crush_launches + bal_crush_launches,
+        "launches": crush_launches + bal_crush_launches + chaos["b6"],
         "max_abs_err": crush_err,
         "ms": crush_times[0]["ms"],
         "held_ms": crush_times[0]["held_ms"],
@@ -4511,7 +4960,7 @@ def main() -> int:
     if left:
         raise AssertionError(f"processes still running: {left}")
     print("  none", flush=True)
-    print("phase 23: kernels and the result", flush=True)
+    phase("phase 24: kernels and the result")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -256,7 +256,7 @@ def test_multiprocess_cluster_on_card(tmp_path):
         for osd in sorted(v.osds):
             status = await r.objecter.osd_admin(osd, "status")
             perf = await r.objecter.osd_admin(osd, "perf dump")
-            counts.append((status["ec_launches"], perf["kernels"]["gf_matmul_packed"]))
+            counts.append((status["ec_launches"], perf[f"kernels.osd.{osd}"]["gf_matmul_packed"]))
         await r.shutdown()
         return counts
 
@@ -322,3 +322,39 @@ def test_fleet_parallel_save_and_mesh_restore_on_card():
         assert len(back[name].slots) == 3
         for idx, block in back[name].slots:
             assert block.device.type == "cuda" and torch.equal(block, src[idx]), name
+
+
+@pytest.mark.gpu
+def test_run_chaos_on_card_equals_cpu():
+    """The daemon-free chaos replay maps its pools with the choose kernel on
+    the card (B6): the report is byte-identical to the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on one)")
+    import json
+
+    from ceph_tpu_torch.ops import crush_cuda as cc
+    from ceph_tpu_torch.sim import run_chaos
+
+    before = cc.crush_choose.launches
+    card = run_chaos(7)
+    assert cc.crush_choose.launches > before
+    assert json.dumps(card, sort_keys=True) == json.dumps(run_chaos(7, device="cpu"),
+                                                          sort_keys=True)
+
+
+@pytest.mark.gpu
+def test_chaos_live_on_card_launches_b1():
+    """A short live chaos run on the card: the EC pool's writes go through
+    B1, no acked write is lost and the stores scrub clean."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on one)")
+    import asyncio
+
+    from ceph_tpu_torch.tools.chaos_tool import run_chaos_live
+
+    before = gc.gf_matmul_packed.launches
+    report = asyncio.run(asyncio.wait_for(run_chaos_live(
+        7, steps=3, step_seconds=1.0, progress=lambda *_: None), 180))
+    assert gc.gf_matmul_packed.launches > before
+    assert report["lost"] == [] and report["scrub_errors"] == 0
+    assert report["p99_s"] <= report["p99_budget_s"]

@@ -181,8 +181,9 @@ def test_entry_points_need_a_device(tmp_path, monkeypatch):
         vstart.VStart(str(tmp_path / "x"))
     with pytest.raises(RuntimeError, match="cuda"):
         daemon_bench.run(["--multiprocess"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        vstart.VStart(str(tmp_path / "y"), device="cpu").start_daemon("mgr", 0)
+    for kind in ("mds", "rgw"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            vstart.VStart(str(tmp_path / "y"), device="cpu").start_daemon(kind, 0)
 
     builds = []
     monkeypatch.setattr(cuda_build, "build", lambda *a: builds.append("cuda"))
@@ -190,9 +191,63 @@ def test_entry_points_need_a_device(tmp_path, monkeypatch):
     monkeypatch.setattr(vstart.VStart, "_spawn", lambda self, kind, ident: (kind, ident))
     v = vstart.VStart(str(tmp_path / "z"), n_mons=1, n_osds=2, device="cpu")
     v.start()
+    v.start_daemon("mgr", 0)
+    assert v.extra == {("mgr", 0): ("mgr", 0)}
     assert builds == [] and v.spec.extras == {"device": "cpu"}
     assert vstart.ClusterSpec.load(v.spec_path).device == "cpu"
     assert vstart.VStart(str(tmp_path / "w"), device="cpu").client().objecter.device.type == "cpu"
+
+
+async def http_get(port: int, path: str) -> tuple[int, bytes]:
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"GET {path} HTTP/1.1\r\nHost: 127.0.0.1\r\n\r\n".encode())
+    raw = await reader.read()
+    writer.close()
+    head, _, body = raw.partition(b"\r\n\r\n")
+    return int(head.split()[1]), body
+
+
+@pytest.mark.slow
+def test_vstart_mgr_process_scrapes_every_osd(tmp_path):
+    """A mgr spawned by VStart (`python -m ceph_tpu_torch.mgr`) goes active,
+    every OSD process reports to it, and its /metrics lists every OSD's
+    counters, its `kernels.osd.N` block among them (0 launches on the CPU);
+    SIGTERM stops it with the rest, exit code 0."""
+    from ceph_tpu_torch.vstart import VStart
+
+    n_osds = 3
+    v = VStart(str(tmp_path), n_mons=1, n_osds=n_osds, device="cpu", env=CHILD_ENV,
+               config={"mgr_report_interval": 0.5})
+
+    async def main():
+        await asyncio.to_thread(v.wait_started, 120)
+        r = v.client()
+        await r.connect()
+        await v.wait_healthy(rados=r, timeout=120)
+        v.start_daemon("mgr", 0)
+        port = await asyncio.to_thread(v.daemon_port, "mgr", 0, 120)
+        want = [f'ceph_tpu_daemon_gf_matmul_packed{{daemon="kernels.osd.{i}"}} 0'
+                for i in range(n_osds)]
+        want += [f'ceph_tpu_daemon_op_w{{daemon="osd.{i}"}}' for i in range(n_osds)]
+        loop = asyncio.get_running_loop()
+        end = loop.time() + 120
+        while True:
+            status, body = await http_get(port, "/metrics")
+            text = body.decode()
+            if status == 200 and all(w in text for w in want):
+                break
+            assert loop.time() < end, (status, [w for w in want if w not in text])
+            await asyncio.sleep(0.5)
+        mm = (await r.mon_command("mgr map"))["mgrmap"]
+        assert mm["active"] == "mgr.0"
+        await r.shutdown()
+
+    v.start()
+    try:
+        run(main(), 180)
+    finally:
+        rcs = v.stop(signal.SIGTERM)
+    assert rcs == {**{"mon.0": 0, "mgr.0": 0}, **{f"osd.{i}": 0 for i in range(n_osds)}}
 
 
 @pytest.mark.slow

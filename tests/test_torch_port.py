@@ -53,7 +53,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "ckpt/store.py", "tools/ckpt_tool.py", "data/layout.py", "data/reader.py",
                  "data/writer.py", "data/store.py", "coord/lock.py", "coord/fleet.py",
                  "coord/mesh.py", "coord/driver.py", "tools/data_tool.py",
-                 "tools/fleet_tool.py", "tools/bench_cluster.py"):
+                 "tools/fleet_tool.py", "tools/bench_cluster.py", "sim/chaos.py",
+                 "tools/chaos_tool.py", "mgr/metrics.py", "mgr/traces.py", "mgr/prometheus.py",
+                 "mgr/autoscaler.py", "mgr/dashboard.py", "mgr/daemon.py", "mgr/__main__.py",
+                 "tools/ceph_top.py", "tools/trace_tool.py"):
         assert os.path.join(REPO, "ceph_tpu_torch", *part.split("/")) in files
     bad = [
         (os.path.relpath(path, REPO), mod)
@@ -147,8 +150,23 @@ def test_default_device_entry_points_raise_without_a_card(tmp_path):
     assert Monitor(0, monmap, osdmap, device="cpu").device.type == "cpu"
     assert Rados("client.admin", monmap, device="cpu").objecter.device.type == "cpu"
     for flag in ("--mgr", "--recovery", "--chaos=1"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            daemon_bench.run([flag, "--device", "cpu"])
+        with pytest.raises(RuntimeError, match="cuda"):
+            daemon_bench.run([flag])
+
+    from ceph_tpu_torch.mgr import MgrService
+    from ceph_tpu_torch.sim import run_chaos
+    from ceph_tpu_torch.tools import chaos_tool
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_chaos(1, steps=3)
+    with pytest.raises(RuntimeError, match="cuda"):
+        chaos_tool.LiveCluster(chaos_tool.chaos_config())
+    with pytest.raises(RuntimeError, match="cuda"):
+        chaos_tool.main(["--seed", "1", "--steps", "3"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        MgrService("mgr.x", monmap)
+    assert MgrService("mgr.x", monmap, device="cpu").device.type == "cpu"
+    assert chaos_tool.LiveCluster(chaos_tool.chaos_config(), device="cpu").device.type == "cpu"
 
     import asyncio
     from types import SimpleNamespace
