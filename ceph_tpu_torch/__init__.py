@@ -48,10 +48,22 @@ Subpackages ported so far:
              ckpt_tool, data_tool and fleet_tool (their benches share
              bench_cluster); rados, ceph, dencoder, objectstore_tool,
              monstore_tool and store_bench
-  mgr      — the balancer module; sim — the cluster simulator behind psim
+  mgr      — the manager daemon (MgrService) and its modules: the balancer,
+             metrics and SLOs, traces, Prometheus, the autoscaler, the
+             dashboard; `python -m ceph_tpu_torch.mgr` is its process;
+             sim — the cluster simulator behind psim and the chaos replay
+  rbd      — block images over RADOS objects: sparse writes with the
+             read-modify-write, object maps, snapshots, clones, fast diff,
+             the cluster-side exclusive lock, live migration
+  journal  — the journaling library, journaled images and the mirror's
+             image replayer
+  cephfs   — the file system: the fs object classes and direct library,
+             the MDS daemon (sessions, caps, journal replay on failover,
+             ranks, snapshots, dirfrags) and its client; `python -m
+             ceph_tpu_torch.cephfs` is an mds process
   vstart   — the multi-process cluster: VStart spawns a process per monitor
              and OSD daemon from a cluster spec (the genesis OSDMap,
-             loopback ports, the daemon mains)
+             loopback ports, the daemon mains), and mgr and mds daemons
 
 Device rule: entry points run on `cuda` unless the caller passes
 `device="cpu"`; asking for `cuda` where none is present raises.

@@ -29,8 +29,9 @@ card). A card can be opened by many processes, so every OSD's
 builds the CUDA and native libraries before it spawns anything, and each
 daemon main creates its context and loads its libraries before its loop
 starts, so neither a build nor a context creation ever stalls a heartbeat.
-``start_daemon("mgr", i)`` spawns a manager on the same device; the mds and
-rgw daemons are not ported, and ``start_daemon`` raises for them.
+``start_daemon("mgr", i)`` spawns a manager and ``start_daemon("mds", i)`` a
+metadata server on the same device; the rgw daemon is not ported, and
+``start_daemon`` raises for it.
 """
 
 from __future__ import annotations
@@ -268,9 +269,10 @@ async def _run_forever(stop_evt: asyncio.Event) -> None:
 
 
 def daemon_main(kind: str, ident: int, spec_path: str) -> None:
-    """Shared entry point behind ``python -m ceph_tpu_torch.{mon,osd,mgr}``."""
+    """Shared entry point behind
+    ``python -m ceph_tpu_torch.{mon,osd,mgr,cephfs}``."""
     spec = ClusterSpec.load(spec_path)
-    if kind not in ("mon", "osd", "mgr"):
+    if kind not in ("mon", "osd", "mgr", "mds"):
         raise SystemExit(f"daemon kind {kind!r} is not ported to ceph_tpu_torch")
     # context and kernel libraries now, never on the daemon's loop
     device = init_device(spec.device)
@@ -290,8 +292,8 @@ def daemon_main(kind: str, ident: int, spec_path: str) -> None:
 
         cfg = spec.build_config()
         keyring = spec.bytes_keyring()
-        if kind == "mgr":
-            db = None  # a manager keeps no store
+        if kind in ("mgr", "mds"):
+            db = None  # a manager or an mds keeps no store of its own
         elif kind == "osd" and cfg.get("osd_objectstore") == "memstore":
             from ceph_tpu_torch.common.kv import MemDB
 
@@ -337,16 +339,37 @@ def daemon_main(kind: str, ident: int, spec_path: str) -> None:
                 f.write(str(port))
             started.set()
             print(f"mgr.{ident} http on :{port} on {device}", flush=True)
+        elif kind == "mds":
+            from ceph_tpu_torch.cephfs.mds import MDSService
+
+            mds = MDSService(
+                f"mds.{ident}", spec.monmap(),
+                int(spec.extras.get("mds_data_pool", 1)),
+                config=cfg, keyring=keyring, device=device,
+            )
+            daemon = mds
+            _install_term_handler(loop, lambda: _stop(daemon))
+            await mds.start()
+            started.set()
+            print(f"mds.{ident} up at {mds.addr} on {device}", flush=True)
         else:
             from ceph_tpu_torch.osd.daemon import OSDService
 
-            # the built-in cls families come with default_handler(); the
-            # reference's main also registers cephfs, journal and rgw
-            # classes, whose modules are not ported
+            from ceph_tpu_torch.cephfs.fs import register_fs_classes
+            from ceph_tpu_torch.journal.journal import (
+                register_journal_classes,
+            )
+
             osd = OSDService(
                 ident, spec.monmap(), db=db, config=cfg, keyring=keyring,
                 device=device,
             )
+            # the reference OSD dlopens every cls plugin at boot: beside
+            # the built-in families, a daemon-main OSD registers the
+            # cephfs and journal classes (the rgw classes come with the
+            # rgw module, which is not ported)
+            register_fs_classes(osd)
+            register_journal_classes(osd)
             osd.perf_collection.add(KernelCounters(osd.name))
             daemon = osd
             _install_term_handler(loop, lambda: _stop(daemon))
@@ -430,12 +453,13 @@ class VStart:
 
     # -- process management ---------------------------------------------------
 
-    #: daemon kind -> python module hosting its __main__ (mds and rgw are
-    #: not ported)
+    #: daemon kind -> python module hosting its __main__ (rgw is not
+    #: ported)
     _KIND_MODULE = {
         "mon": "ceph_tpu_torch.mon",
         "osd": "ceph_tpu_torch.osd",
         "mgr": "ceph_tpu_torch.mgr",
+        "mds": "ceph_tpu_torch.cephfs",
     }
 
     def _spawn(self, kind: str, ident: int) -> subprocess.Popen:
@@ -470,8 +494,9 @@ class VStart:
         self.osds[osd_id] = self._spawn("osd", osd_id)
 
     def start_daemon(self, kind: str, ident: int) -> None:
-        """Spawn a mgr process on the cluster's device. The reference also
-        spawns mds and rgw daemons here; their modules are not ported."""
+        """Spawn a mgr or mds process on the cluster's device. The
+        reference also spawns rgw daemons here; that module is not
+        ported."""
         if kind not in self._KIND_MODULE:
             raise NotImplementedError(
                 f"vstart: {kind} daemons are not ported to ceph_tpu_torch"

@@ -34,7 +34,8 @@ slot) through sharded_encode/decode, the planar entry points and
 EncodeService's mesh path. Then the cluster as its users deploy it: a
 process per monitor and per OSD daemon (vstart), each OSD on BlockStore and
 each with its own CUDA context, its EncodeService encoding, degraded-decoding
-and recovering through the GF(2^8) kernel. Phases:
+and recovering through the GF(2^8) kernel; on it, block images with their
+snapshots, clones and mirror, and CephFS through mds processes. Phases:
 
   1. the card: name, count, and nvidia-smi's name and power limit;
   2. build every kernel under ceph_tpu_torch/csrc with nvcc (ptxas report);
@@ -256,9 +257,30 @@ and recovering through the GF(2^8) kernel. Phases:
       every stored EC shard equal to the CPU tpu codec's; `daemon_bench
       --recovery` at its defaults (the replicated pool: B1 is not expected
       there); `daemon_bench --mgr`;
-  23. no process this script started is left (nvcc, nvidia-smi, the
+  23. block images, their mirror and CephFS on phase 20's cluster, after
+      phase 22's mgr window and before the SIGTERM, B1 counted in the OSD
+      processes per window: 4 client processes on the card, each a thin
+      10 GiB image of order 22 (4 MiB objects) in pool 1 opened exclusive,
+      writing 256 MiB in 4 MiB writes, 4 in flight on disjoint objects
+      (`rbd bench --io-size 4M --io-total 1G --io-threads 16` over the
+      four), then a 4 KiB read-modify-write in each of its objects; image
+      0's snapshot, 16 overwrites read at the snapshot and listed exactly
+      by `diff`, a protected clone and a copy-up write into it; every
+      image read back whole (its written span and a hole) and
+      `object_map_check` empty on each; one OSD process SIGKILLed, the
+      images read again degraded (B1's decode), the OSD restarted and
+      every PG clean; a journaled image (64 MiB, 16 writes of 4 KiB-4 MiB
+      and a resize) replayed into pool 2 by `ImageReplayer.run_once`, the
+      replica equal to the source and the journal trimmed; two mds
+      processes (`python -m ceph_tpu_torch.cephfs`) serving CephFS on pool
+      2 (an EC pool has no omap for its directories), 16 directories of 4
+      files of 64 KiB-4 MiB, the active SIGKILLed, the standby taking the
+      rank and answering a resent request from its journal replay, every
+      file equal; after the SIGTERM, every rbd_data head object's shards
+      checked offline with phase 20's;
+  24. no process this script started is left (nvcc, nvidia-smi, the
       worker processes, the daemons and the tools are all waited for);
-  24. a `kernels` JSON line, then the `ok` JSON line, last.
+  25. a `kernels` JSON line, then the `ok` JSON line, last.
 
 Each kernel is timed three ways: `ms`, its call time (CUDA events around
 back-to-back calls of its wrapper, as every share and comparison uses);
@@ -3488,10 +3510,12 @@ MP_VICTIMS = (3, 7)
 #: command and the grace outlasts their time down (ROADMAP §C: a revived OSD
 #: is otherwise reported failed off its peers' stale heartbeat stamps); PG
 #: stats reach the monitors every second, so their health reads what the PGs
-#: are now
+#: are now; phase 23's mds beacons every 0.2 s and a grace of 1.5 s
+#: (tests/test_mds_live.py's), so that its failover takes seconds
 MP_CONFIG = {"osd_objectstore": "blockstore", "mon_lease": 1.0, "mon_election_timeout": 5.0,
              "osd_heartbeat_interval": 0.5, "osd_heartbeat_grace": 120,
-             "osd_mon_report_interval": 1.0}
+             "osd_mon_report_interval": 1.0, "mds_beacon_interval": 0.2,
+             "mds_beacon_grace": 1.5}
 MP_QUIET_POLLS = 10
 MP_RECOVERY_S = 300
 #: the health checks that say a PG is not clean
@@ -3646,10 +3670,12 @@ def mp_crush_max_size(rados, decompile_crushmap, size: int) -> str:
     return decompile_crushmap(crush)
 
 
-def mp_check_stores(run_dir: str, want: dict, factory) -> int:
-    """Phase 20's offline check: every pool-1 shard in every stopped OSD's
-    store, read with the port's objectstore_tool, and its hinfo digest, equal
-    what the CPU isa codec makes of the object's bytes. Returns the shards."""
+def mp_check_stores(run_dir: str, want: dict, factory, parity: dict | None = None) -> int:
+    """Phases 20 and 23's offline check: every pool-1 shard in every stopped
+    OSD's store, read with the port's objectstore_tool, and its hinfo digest,
+    equal what the CPU isa codec makes of the object's bytes (`parity`: the
+    parity chunks of some of them, made by that codec in worker processes).
+    Returns the shards."""
     from ceph_tpu_torch.common.crc import ceph_crc32c
     from ceph_tpu_torch.osd.ecutil import SEED as HINFO_SEED
     from ceph_tpu_torch.tools.objectstore_tool import open_store
@@ -3658,19 +3684,27 @@ def mp_check_stores(run_dir: str, want: dict, factory) -> int:
                   device="cpu")
     n = cpu.get_chunk_count()
     size = cpu.get_chunk_size(OBJECT_BYTES)
-    if size * K != OBJECT_BYTES or any(len(d) != OBJECT_BYTES for d in want.values()):
-        raise AssertionError("phase 20's objects must split into k chunks with no padding")
-    # the codec's array API over batches of 16 objects: data chunk i of an
-    # object is its bytes [i*size, (i+1)*size), as encode() cuts them
-    names, chunks = sorted(want), {}
+    if size * K != OBJECT_BYTES:
+        raise AssertionError("a 4 MiB object must split into k chunks with no padding")
+    # the codec's array API over batches of 16 whole objects: data chunk i of
+    # an object is its bytes [i*size, (i+1)*size), as encode() cuts them; an
+    # object of another size (the journaled image's) through encode() itself
+    parity = parity or {}
+    chunks = {name: [want[name][i * size:(i + 1) * size] for i in range(K)] + parity[name]
+              for name in parity}
+    for name in set(want) - set(parity):
+        if len(want[name]) != OBJECT_BYTES:
+            made = cpu.encode(set(range(n)), want[name])
+            chunks[name] = [made[i] for i in range(n)]
+    names = sorted(set(want) - set(chunks))
     for lo in range(0, len(names), 16):
         batch = names[lo:lo + 16]
         data = torch.from_numpy(np.frombuffer(b"".join(want[m] for m in batch),
                                               np.uint8).reshape(len(batch), K, size).copy())
-        parity = cpu.encode_array(data).numpy()
+        made = cpu.encode_array(data).numpy()
         for j, name in enumerate(batch):
             chunks[name] = [want[name][i * size:(i + 1) * size] for i in range(K)] + [
-                parity[j, i].tobytes() for i in range(M)]
+                made[j, i].tobytes() for i in range(M)]
     held: dict[str, set] = {name: set() for name in want}
     checked = 0
     # phase 21's objects share the pool; fsck covers them
@@ -3889,6 +3923,8 @@ def phase_multiprocess(factory, decompile_crushmap, smi: str) -> dict:
             fleet = asyncio.run(asyncio.wait_for(fleet_sequence(v, smi), 900))
             phase("phase 22: the manager daemon on this cluster")
             mgr = asyncio.run(asyncio.wait_for(mgr_sequence(v, smi), 600))
+            phase("phase 23: block images, their mirror and CephFS on this cluster")
+            rbd = asyncio.run(asyncio.wait_for(rbd_sequence(v, smi, sorted(out["want"])), 900))
         except BaseException:
             for name in v.exited() or ("mon.0", "osd.0"):
                 print(f"  {name}'s log ends:\n{v.log_tail(name)}", flush=True)
@@ -3897,7 +3933,8 @@ def phase_multiprocess(factory, decompile_crushmap, smi: str) -> dict:
             rcs = v.stop(signal.SIGTERM)
         print(f"  SIGTERM to every daemon: exit codes {rcs} (at {time.perf_counter() - T0:.1f} s)",
               flush=True)
-        if any(rcs.values()) or len(rcs) != MP_MONS + MP_OSDS + 1:
+        # the mgr and the mds that took the rank (its peer was SIGKILLed)
+        if any(rcs.values()) or len(rcs) != MP_MONS + MP_OSDS + 2:
             raise AssertionError(f"a daemon did not stop cleanly: {rcs}")
         names = ("EncodeService launches", "objects", "B1 wrapper launches", "pushes")
         for window, counts in out["launches"].items():
@@ -3906,10 +3943,13 @@ def phase_multiprocess(factory, decompile_crushmap, smi: str) -> dict:
             if counts[0] < 1 or counts[2] < 1:
                 raise AssertionError(f"B1 did not launch in the {window} window: {counts}")
         t = time.perf_counter()
-        checked = mp_check_stores(run_dir, out["want"], factory)
+        heads = {**rbd_heads(), **rbd.pop("mirror_heads")}
+        checked = mp_check_stores(run_dir, {**out["want"], **heads}, factory, rbd.pop("parity"))
         errors = mp_fsck(run_dir)
         print(f"  offline, the stopped stores: {checked} pool-{EC_POOL} shards of "
-              f"{len(out['want'])} objects equal the CPU isa codec's chunks, each with its "
+              f"{len(out['want'])} phase-20 objects and {len(heads)} rbd_data head objects "
+              f"equal the CPU isa codec's chunks (their parity made in worker processes during "
+              f"phase 23's steps 5-6, {rbd['times']['parity_s']:.2f} s), each with its "
               f"hinfo digest; objectstore_tool --op fsck error counts {errors} "
               f"({time.perf_counter() - t:.2f} s)", flush=True)
         if any(errors):
@@ -3917,7 +3957,7 @@ def phase_multiprocess(factory, decompile_crushmap, smi: str) -> dict:
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
     return {"launches": sum(c[2] for c in out["launches"].values()), "times": out["times"],
-            "fleet": fleet, "mgr": mgr}
+            "fleet": fleet, "mgr": mgr, "rbd": rbd}
 
 
 def phase_multiprocess_bench(smi: str) -> None:
@@ -4528,6 +4568,490 @@ async def mgr_sequence(v, smi: str) -> dict:
     return out
 
 
+# -- phase 23: block images, their mirror and CephFS on this cluster -----------------
+
+#: one thin image a client process, `rbd create --size 10G` at rbd's default
+#: order 22 (4 MiB objects), in pool 1 (isa k=8 m=3)
+RBD_IMAGE_BYTES = 10 << 30
+RBD_ORDER = 22
+RBD_OBJECT = 1 << RBD_ORDER
+#: `rbd bench --io-type write --io-size 4M --io-total 1G --io-threads 16` over
+#: the four images: 256 MiB an image in 4 MiB writes, 4 in flight on each on
+#: disjoint objects (after a first write alone: ROADMAP §C)
+RBD_SPAN = 256 << 20
+RBD_IN_FLIGHT = 4
+#: 4 KiB writes at seeded offsets, one in each data object of an image: each a
+#: read-modify-write of its 4 MiB object
+RBD_SMALL = 4096
+RBD_RMW = RBD_SPAN // RBD_OBJECT
+#: image 0's 4 KiB overwrites after its snapshot
+RBD_SNAP_WRITES = 16
+#: the copy-up write into image 0's clone: 4 KiB inside its object 5
+RBD_CLONE_OFF = 5 * RBD_OBJECT + 12345
+#: the journaled image in pool 1 replayed into pool 2: its size, its seeded
+#: writes of 4 KiB-4 MiB, the size it is cut to
+MIRROR_BYTES, MIRROR_WRITES, MIRROR_RESIZE = 64 << 20, 16, 48 << 20
+#: CephFS on pool 2 (directories are omap objects: an EC pool refuses them,
+#: in both packages): directories, files in each, two mds processes;
+#: directories filled (and files read back) at a time
+FS_DIRS, FS_FILES, FS_MDS, FS_IN_FLIGHT = 16, 4, 2, 4
+
+
+def rbd_patches(worker: int) -> list[tuple[int, bytes]]:
+    """Image `worker`'s 4 KiB read-modify-writes: one at a seeded offset in
+    each data object, in a seeded order."""
+    rng = np.random.default_rng([SEED + 23, worker, 1])
+    return [(int(o) * RBD_OBJECT + int(rng.integers(0, RBD_OBJECT - RBD_SMALL + 1)),
+             rng.bytes(RBD_SMALL)) for o in rng.permutation(RBD_RMW)]
+
+
+def rbd_snap_patches() -> list[tuple[int, bytes]]:
+    """Image 0's 4 KiB overwrites after its snapshot, at seeded offsets."""
+    rng = np.random.default_rng([SEED + 23, 0, 2])
+    return [(int(rng.integers(0, RBD_SPAN - RBD_SMALL + 1)), rng.bytes(RBD_SMALL))
+            for _ in range(RBD_SNAP_WRITES)]
+
+
+def rbd_clone_patch() -> bytes:
+    return np.random.default_rng([SEED + 23, 0, 3]).bytes(RBD_SMALL)
+
+
+def rbd_image_bytes(worker: int, after_snap: bool = True) -> bytearray:
+    """The written span of image `worker` as its client holds it: the seeded
+    4 MiB writes, then the read-modify-writes, then (image 0, `after_snap`)
+    the overwrites after the snapshot."""
+    buf = bytearray(np.random.default_rng([SEED + 23, worker]).bytes(RBD_SPAN))
+    patches = rbd_patches(worker) + (rbd_snap_patches() if worker == 0 and after_snap else [])
+    for off, data in patches:
+        buf[off:off + len(data)] = data
+    return buf
+
+
+def rbd_clone_object() -> bytes:
+    """The clone's one object after its copy-up write: image 0's object at
+    the snapshot with the 4 KiB patch."""
+    lo = RBD_CLONE_OFF - RBD_CLONE_OFF % RBD_OBJECT
+    obj = rbd_image_bytes(0, after_snap=False)[lo:lo + RBD_OBJECT]
+    at = RBD_CLONE_OFF - lo
+    obj[at:at + RBD_SMALL] = rbd_clone_patch()
+    return bytes(obj)
+
+
+def rbd_image_heads(worker: int) -> dict:
+    """{rbd_data head object name: bytes} of image `worker`'s data objects
+    (and, for image 0, its clone's), as they end the window."""
+    buf = rbd_image_bytes(worker)
+    out = {f"rbd_data.img{worker}.{o:016x}": bytes(buf[o * RBD_OBJECT:(o + 1) * RBD_OBJECT])
+           for o in range(RBD_SPAN // RBD_OBJECT)}
+    if worker == 0:
+        out[f"rbd_data.img0-clone.{RBD_CLONE_OFF // RBD_OBJECT:016x}"] = rbd_clone_object()
+    return out
+
+
+def rbd_heads() -> dict:
+    return {name: data for w in range(MP_CLIENTS) for name, data in rbd_image_heads(w).items()}
+
+
+def _cpu_parity(job):
+    """Worker: the CPU isa codec's parity chunks, for the offline check, of
+    image `what`'s head objects (and, for image 0, the clone's object), or,
+    given a list of phase 20's object names, of those."""
+    from ceph_tpu_torch.ec.registry import factory
+
+    what, threads = job
+    torch.set_num_threads(threads)
+    cpu = factory("isa", {k: v for k, v in DAEMON_EC_PROFILE.items() if k != "plugin"},
+                  device="cpu")
+    if isinstance(what, list):
+        heads = {name: mp_object(*map(int, name.split("-")[1:])) for name in what}
+    else:
+        heads = rbd_image_heads(what)
+    names, objs = list(heads), list(heads.values())
+    size = len(objs[0]) // K
+    out = {}
+    for lo in range(0, len(names), 16):
+        data = torch.from_numpy(np.frombuffer(b"".join(objs[lo:lo + 16]), np.uint8)
+                                .reshape(-1, K, size).copy())
+        parity = cpu.encode_array(data).numpy()
+        for j, name in enumerate(names[lo:lo + 16]):
+            out[name] = [parity[j, i].tobytes() for i in range(M)]
+    return out
+
+
+def rbd_marker(spec_path: str, tag: str) -> str:
+    """A marker file of phase 23's client processes, in the run dir."""
+    return os.path.join(os.path.dirname(spec_path), f"rbd-{tag}")
+
+
+def wait_markers(paths: list[str], timeout: float = 600.0) -> None:
+    end = time.time() + timeout
+    while not all(os.path.exists(p) for p in paths):
+        if time.time() > end:
+            raise AssertionError(f"timed out waiting for {paths}")
+        time.sleep(0.05)
+
+
+def _rbd_client(job):
+    """Worker: one client process of phase 23 on the card, through steps 1-4.
+    It creates its image, opens it exclusive, writes the span in 4 MiB I/Os
+    (the first alone, then RBD_IN_FLIGHT at a time) and the read-modify-
+    writes; client 0 then takes image 0's snapshot, overwrites, diff, clone
+    and copy-up. Once every client has written, each reads its image back
+    (the span in 4 MiB reads and a hole past it, each equal to what it holds)
+    and runs `object_map_check`; then, when the parent has killed an OSD,
+    reads it back again, degraded."""
+    from ceph_tpu_torch.vstart import ClusterSpec
+
+    spec_path, worker = job
+    spec = ClusterSpec.load(spec_path)
+    name = f"img{worker}"
+
+    async def run():
+        from ceph_tpu_torch.rados.client import Rados
+        from ceph_tpu_torch.rbd import Image
+
+        rados = Rados(f"client.rbd{worker}", spec.monmap(), config=spec.build_config(),
+                      device="cuda")
+        await rados.connect()
+        io = rados.io_ctx(EC_POOL)
+        buf = bytes(np.random.default_rng([SEED + 23, worker]).bytes(RBD_SPAN))
+        await Image.create(io, name, RBD_IMAGE_BYTES, order=RBD_ORDER)
+        img = await Image.open(io, name, exclusive=True)
+        t0 = time.time()
+        await img.write(0, buf[:RBD_OBJECT])
+        first = time.time()
+        seconds = await daemon_gather(
+            [lambda off=off: img.write(off, buf[off:off + RBD_OBJECT])
+             for off in range(RBD_OBJECT, RBD_SPAN, RBD_OBJECT)], RBD_IN_FLIGHT)
+        t1 = time.time()
+        rmw = await daemon_gather([lambda p=p: img.write(*p) for p in rbd_patches(worker)],
+                                  RBD_IN_FLIGHT)
+        out = {"write": (t0, t1), "first_s": first - t0, "seconds": seconds,
+               "rmw": (t1, time.time()), "rmw_seconds": rmw}
+        del buf
+        if worker == 0:
+            out["snap"] = await rbd_snapshot_step(io, img)
+        await img.close()
+        want = rbd_image_bytes(worker)
+        img = await Image.open(io, name)
+
+        async def read_back(key):
+            async def one(off):
+                if await img.read(off, RBD_OBJECT) != want[off:off + RBD_OBJECT]:
+                    raise AssertionError(f"{name} [{off}, +4 MiB) read back other bytes")
+
+            t = time.time()
+            await daemon_gather([lambda off=off: one(off)
+                                 for off in range(0, RBD_SPAN, RBD_OBJECT)], RBD_IN_FLIGHT)
+            out[key] = (t, time.time())
+            if await img.read(RBD_IMAGE_BYTES - RBD_OBJECT, RBD_OBJECT) != bytes(RBD_OBJECT):
+                raise AssertionError(f"{name}'s last 4 MiB, never written, is not a hole")
+
+        open(rbd_marker(spec_path, f"written.{worker}"), "w").close()
+        await asyncio.to_thread(wait_markers, [rbd_marker(spec_path, f"written.{w}")
+                                               for w in range(MP_CLIENTS)])
+        await read_back("read")
+        t = time.perf_counter()
+        bad = await img.object_map_check()
+        out["check_s"] = time.perf_counter() - t
+        if bad:
+            raise AssertionError(f"{name}: object_map_check found {bad[:8]}")
+        open(rbd_marker(spec_path, f"read.{worker}"), "w").close()
+        await asyncio.to_thread(wait_markers, [rbd_marker(spec_path, "degraded")])
+        await read_back("degraded")
+        await rados.shutdown()
+        return out
+
+    return asyncio.run(asyncio.wait_for(run(), 900))
+
+
+async def rbd_snapshot_step(io, img) -> dict:
+    """Step 2, on image 0: a snapshot, 4 KiB overwrites, each read at the
+    snapshot, `diff` against the objects written, protect, a clone and a
+    copy-up write into it, read back."""
+    from ceph_tpu_torch.rbd import Image
+
+    t = time.perf_counter()
+    await img.snap_create("s0")
+    patches = rbd_snap_patches()
+    for off, data in patches:
+        await img.write(off, data)
+    base = rbd_image_bytes(0, after_snap=False)
+    for off, _ in patches:
+        if await img.read(off, RBD_SMALL, snap_name="s0") != base[off:off + RBD_SMALL]:
+            raise AssertionError(f"img0@s0 [{off}, +4 KiB) is not the bytes before the snapshot")
+    touched = sorted({o for off, _ in patches
+                      for o in (off // RBD_OBJECT, (off + RBD_SMALL - 1) // RBD_OBJECT)})
+    diff = await img.diff("s0")
+    if diff != touched:
+        raise AssertionError(f"diff s0 {diff}, objects written since {touched}")
+    await img.snap_protect("s0")
+    child = await Image.clone(io, "img0", "s0", io, "img0-clone")
+    await child.write(RBD_CLONE_OFF, rbd_clone_patch())
+    lo = RBD_CLONE_OFF - RBD_CLONE_OFF % RBD_OBJECT
+    if (await child.read(lo, RBD_OBJECT) != rbd_clone_object()
+            or await child.read(0, RBD_OBJECT) != base[:RBD_OBJECT]):
+        raise AssertionError("the clone reads other bytes than its parent's snapshot and patch")
+    return {"diff": diff, "s": time.perf_counter() - t}
+
+
+def span_of(results: list, key: str) -> float:
+    return max(r[key][1] for r in results) - min(r[key][0] for r in results)
+
+
+async def fs_map(rados) -> dict:
+    """The committed FSMap: {"active": name or None, "standbys": [names]}."""
+    fm = (await rados.mon_command("fs map"))["fsmap"]
+    return {"active": (fm.get("active") or {}).get("name"),
+            "standbys": [s["name"] for s in fm.get("standbys", [])]}
+
+
+async def wait_fs_map(rados, pred, what: str, timeout: float = 120.0) -> dict:
+    loop = asyncio.get_running_loop()
+    end = loop.time() + timeout
+    while True:
+        fm = await fs_map(rados)
+        if pred(fm):
+            return fm
+        if loop.time() > end:
+            raise AssertionError(f"{what}: fs map {fm}")
+        await asyncio.sleep(0.1)
+
+
+async def rbd_window(v, c, rados, smi: str) -> dict:
+    """Steps 1-4 through MP_CLIENTS client processes (`_rbd_client`): the
+    images' writes, image 0's snapshot and clone, the full read-back with the
+    object maps checked, and, with an OSD process SIGKILLed, the degraded
+    read-back; B1 counted in the OSD processes per window."""
+    out = {"launches": {}, "times": {}}
+    nbytes = MP_CLIENTS * RBD_SPAN
+    loop = asyncio.get_running_loop()
+
+    async def markers(tag: str) -> None:
+        paths = [rbd_marker(v.spec_path, f"{tag}.{w}") for w in range(MP_CLIENTS)]
+        end = loop.time() + 900
+        while not all(os.path.exists(p) for p in paths):
+            if clients.done():
+                await clients  # a client process failed: raise its error
+                raise AssertionError(f"the clients ended before {tag}")
+            if loop.time() > end:
+                raise AssertionError(f"the clients never reached {tag}")
+            await asyncio.sleep(0.1)
+
+    before = await c.counts()
+    clients = asyncio.ensure_future(asyncio.to_thread(
+        in_workers, "_rbd_client", [(v.spec_path, w) for w in range(MP_CLIENTS)]))
+    await markers("read")
+    out["launches"]["write"] = window_counts("rbd write", c.delta(before, await c.counts()))
+
+    victim = MP_VICTIMS[0]
+    before = await c.counts()
+    v.kill_osd(victim)
+    before.pop(victim)
+    await mp_mon_command(rados, "osd down", {"osd": victim}, [])
+    repeer_s = await c.wait_pgs(False, 600, "every PG active after the kill")
+    open(rbd_marker(v.spec_path, "degraded"), "w").close()
+    res = await clients
+    out["launches"]["degraded read"] = window_counts("rbd degraded read",
+                                                     c.delta(before, await c.counts()))
+    w_s, rmw_s, read_s, deg_s = (span_of(res, k) for k in ("write", "rmw", "read", "degraded"))
+    lat = [s for r in res for s in r["seconds"]]
+    rmw = [s for r in res for s in r["rmw_seconds"]]
+    snap = res[0]["snap"]
+    out["times"].update(write_gbps=nbytes / w_s / 1e9, write_s=w_s,
+                        rmw_ms=float(np.mean(rmw)) * 1e3,
+                        first_write_s=float(np.mean([r["first_s"] for r in res])),
+                        snap_s=snap["s"], read_gbps=nbytes / read_s / 1e9,
+                        check_s=max(r["check_s"] for r in res),
+                        degraded_read_gbps=nbytes / deg_s / 1e9)
+    print(f"  [{smi}] {MP_CLIENTS} client processes, each a thin {RBD_IMAGE_BYTES >> 30} GiB "
+          f"image of order {RBD_ORDER} in pool {EC_POOL} opened exclusive: {nbytes >> 20} MiB in "
+          f"{RBD_OBJECT >> 20} MiB writes ({RBD_IN_FLIGHT} in flight an image) in {w_s:.3f} s, "
+          f"{out['times']['write_gbps']:.4f} GB/s (each image's first write alone, with the "
+          f"object map's stat sweep: mean {out['times']['first_write_s']:.3f} s), mean write "
+          f"{np.mean(lat) * 1e3:.3f} ms; {len(rmw)} 4 KiB read-modify-writes in {rmw_s:.3f} s, "
+          f"{out['times']['rmw_ms']:.3f} ms each (p50 {np.percentile(rmw, 50) * 1e3:.3f}, max "
+          f"{max(rmw) * 1e3:.3f})", flush=True)
+    print(f"  img0: snapshot, {RBD_SNAP_WRITES} 4 KiB overwrites, each read at the snapshot "
+          f"equal to the bytes before it, diff {snap['diff']} equal to the objects written; "
+          f"protected, cloned, a 4 KiB copy-up write into the clone, which reads its parent's "
+          f"snapshot and the patch ({snap['s']:.3f} s)", flush=True)
+    print(f"  [{smi}] read-back of the {MP_CLIENTS} images' {nbytes >> 20} MiB and a hole each "
+          f"({RBD_IN_FLIGHT} reads in flight an image): {read_s:.3f} s, "
+          f"{out['times']['read_gbps']:.4f} GB/s, every read exact; object_map_check empty on "
+          f"each ({out['times']['check_s']:.3f} s, a stat of each of the "
+          f"{RBD_IMAGE_BYTES // RBD_OBJECT} objects)", flush=True)
+    t = time.perf_counter()
+    v.start_osd(victim)
+    await v.wait_healthy(rados=rados, timeout=300)
+    clean_s = time.perf_counter() - t + await c.wait_pgs(True, MP_RECOVERY_S, "every PG clean")
+    print(f"  [{smi}] OSD process {victim} SIGKILLed and marked down, every PG active again in "
+          f"{repeer_s:.3f} s; degraded read-back of the images: {deg_s:.3f} s, "
+          f"{out['times']['degraded_read_gbps']:.4f} GB/s, every read exact; restarted, every "
+          f"PG clean {clean_s:.3f} s later", flush=True)
+    return out
+
+
+async def mirror_window(rados, smi: str) -> dict:
+    """Step 5: a journaled image in pool 1 replayed into pool 2 by
+    ImageReplayer.run_once until it has caught up."""
+    from ceph_tpu_torch.journal import ImageReplayer, MirroredImage
+    from ceph_tpu_torch.rbd import Image
+
+    src, dst = rados.io_ctx(EC_POOL), rados.io_ctx(REP_POOL)
+    t = time.perf_counter()
+    img = await MirroredImage.create(src, "mirror0", MIRROR_BYTES, order=RBD_ORDER)
+    replayer = ImageReplayer(src, dst, "mirror0")
+    want = bytearray(MIRROR_BYTES)
+    rng = np.random.default_rng([SEED + 23, 5])
+    applied, written = [], 0
+    #: objectno -> the source object's length (a write past its end extends
+    #: it; a whole-object write makes it 4 MiB)
+    lengths: dict[int, int] = {}
+    for i in range(MIRROR_WRITES):
+        n = RBD_SMALL << int(rng.integers(0, 11))
+        off = int(rng.integers(0, MIRROR_BYTES - n + 1))
+        data = rng.bytes(n)
+        await img.write(off, data)
+        want[off:off + n] = data
+        written += n
+        for o in range(off // RBD_OBJECT, (off + n - 1) // RBD_OBJECT + 1):
+            end = min(off + n, (o + 1) * RBD_OBJECT) - o * RBD_OBJECT
+            lengths[o] = max(lengths.get(o, 0), end)
+        if i == MIRROR_WRITES // 2 - 1:
+            applied.append(await replayer.run_once())
+    await img.resize(MIRROR_RESIZE)
+    del want[MIRROR_RESIZE:]
+    applied += [await replayer.run_once(), await replayer.run_once()]
+    replica = await Image.open(dst, "mirror0")
+    page = await img.journal.read()
+    if (applied[2] != 0 or sum(applied) != MIRROR_WRITES + 2 or replica.size != MIRROR_RESIZE
+            or await replica.read(0, MIRROR_RESIZE) != want
+            or await img.read(0, MIRROR_RESIZE) != want
+            or page["entries"] or page["commit"] != page["head"]):
+        raise AssertionError(f"the mirror did not converge: applied {applied}, replica size "
+                             f"{replica.size}, journal head {page['head']} commit "
+                             f"{page['commit']}, {len(page['entries'])} entries left")
+    mirror_s = time.perf_counter() - t
+    print(f"  [{smi}] mirror0 ({MIRROR_BYTES >> 20} MiB, pool {EC_POOL}, journaled): "
+          f"{MIRROR_WRITES} writes of 4 KiB-4 MiB ({written} B) and a resize to "
+          f"{MIRROR_RESIZE >> 20} MiB replayed into pool {REP_POOL} in rounds of {applied} "
+          f"events; the replica reads equal to the source, the journal trimmed to its head "
+          f"{page['head']} ({mirror_s:.3f} s)", flush=True)
+    heads = {f"rbd_data.mirror0.{o:016x}": bytes(want[o * RBD_OBJECT:o * RBD_OBJECT + n])
+             for o, n in lengths.items() if o < MIRROR_RESIZE // RBD_OBJECT}
+    return {"mirror_s": mirror_s}, heads
+
+
+async def cephfs_window(v, rados, smi: str) -> dict:
+    """Step 6: CephFS through the mds processes on pool 2; the active
+    SIGKILLed, the standby takes the rank and replays the journal."""
+    import itertools
+
+    from ceph_tpu_torch.cephfs import CephFSClient, CephFSError
+
+    fm = await wait_fs_map(rados, lambda m: m["active"] and len(m["standbys"]) == FS_MDS - 1,
+                           "the mds processes never took the rank and a standby")
+    fs = CephFSClient(rados, REP_POOL)
+    await fs.mount()
+    await fs.mkfs()
+    rng = np.random.default_rng([SEED + 23, 6])
+    files = {f"/d{d:02d}/f{f}": rng.bytes((64 << 10) << int(rng.integers(0, 7)))
+             for d in range(FS_DIRS) for f in range(FS_FILES)}
+
+    async def fill(d: int) -> None:
+        await fs.mkdir(f"/d{d:02d}")
+        for f in range(FS_FILES):
+            await fs.write_file(f"/d{d:02d}/f{f}", files[f"/d{d:02d}/f{f}"])
+
+    t = time.perf_counter()
+    await daemon_gather([lambda d=d: fill(d) for d in range(FS_DIRS)], FS_IN_FLIGHT)
+    write_s = time.perf_counter() - t
+    tid = next(fs._tids)
+    fs._tids = itertools.chain([tid], fs._tids)
+    ino = await fs.mkdir("/last")
+    active = fm["active"]
+    standby = fm["standbys"][0]
+    t = time.perf_counter()
+    proc = v.extra.pop(("mds", int(active.split(".")[1])))
+    proc.kill()
+    proc.wait(timeout=30)
+    await wait_fs_map(rados, lambda m: m["active"] == standby, "the standby never took the rank")
+    rank_s = time.perf_counter() - t
+    fs._tids = itertools.chain([tid], fs._tids)
+    resent = await fs.mkdir("/last")
+    failover_s = time.perf_counter() - t
+    if resent != ino:
+        raise AssertionError(f"the resent mkdir answered ino {resent}, the first {ino}")
+    try:
+        await fs.mkdir("/last")
+        raise AssertionError("a new mkdir of /last was not refused")
+    except CephFSError as e:
+        if e.code != "EEXIST":
+            raise
+    for d in range(FS_DIRS):
+        names = set(await fs.listdir(f"/d{d:02d}"))
+        if names != {f"f{f}" for f in range(FS_FILES)}:
+            raise AssertionError(f"/d{d:02d} lists {sorted(names)}")
+    async def check(path: str) -> None:
+        if await fs.read_file(path) != files[path]:
+            raise AssertionError(f"{path} read back other bytes")
+
+    await daemon_gather([lambda p=p: check(p) for p in files], FS_IN_FLIGHT)
+    nbytes = sum(map(len, files.values()))
+    print(f"  [{smi}] CephFS on pool {REP_POOL} through {FS_MDS} mds processes ({active} "
+          f"active): {FS_DIRS} directories of {FS_FILES} files, {nbytes} B, in {write_s:.3f} s "
+          f"({FS_IN_FLIGHT} directories at a time); "
+          f"{active} SIGKILLed: {standby} holds the rank in the fs map {rank_s:.3f} s later, "
+          f"and the resent mkdir is answered from its journal replay (ino {resent}, not run "
+          f"again) {failover_s:.3f} s after the kill; every listing and file reads back equal",
+          flush=True)
+    return {"fs_write_s": write_s, "failover_rank_s": rank_s, "failover_s": failover_s}
+
+
+async def rbd_sequence(v, smi: str, mp_names: list[str]) -> dict:
+    """Phase 23 on phase 20's running cluster: block images, their mirror and
+    CephFS. Returns B1's launches in the image windows, the times, and the
+    CPU codec's parity of the image heads and of phase 20's objects
+    (`mp_names`) for the offline check."""
+    t0 = time.perf_counter()
+    v.spec.extras["mds_data_pool"] = REP_POOL
+    v.spec.save(v.spec_path)
+    for i in range(FS_MDS):  # they boot while the images are written
+        v.start_daemon("mds", i)
+    rados = v.client("client.rbdadmin")
+    await rados.connect()
+    c = MPCluster(v, rados)
+    try:
+        out = await rbd_window(v, c, rados, smi)
+        # the offline check's CPU parity of the image heads (written and read
+        # by now) and of phase 20's objects, in worker processes beside steps
+        # 5-6
+        t = time.perf_counter()
+        threads = max(1, (os.cpu_count() or 4) // (MP_CLIENTS + 1))
+        parity = asyncio.ensure_future(asyncio.to_thread(
+            in_workers, "_cpu_parity",
+            [(w, threads) for w in range(MP_CLIENTS)] + [(mp_names, threads)]))
+        try:
+            times, out["mirror_heads"] = await mirror_window(rados, smi)
+            out["times"].update(times)
+            out["times"].update(await cephfs_window(v, rados, smi))
+        finally:
+            out["parity"] = {}
+            for part in await parity:
+                out["parity"].update(part)
+        out["times"]["parity_s"] = time.perf_counter() - t
+    finally:
+        await rados.shutdown()
+    out["s"] = time.perf_counter() - t0
+    out["launches_total"] = sum(w[2] for w in out["launches"].values())
+    widths = {w: round(n[1] / n[0], 3) for w, n in out["launches"].items()}
+    print(f"  [{smi}] phase 23 took {out['s']:.3f} s; B1 wrapper launches in the OSD processes: "
+          f"{ {w: n[2] for w, n in out['launches'].items()} }, EncodeService objects a launch "
+          f"{widths}", flush=True)
+    return out
+
+
 def _chaos_cpu(seed: int) -> tuple[str, float]:
     """Worker: run_chaos(seed) on the CPU, as sorted JSON text, and its
     seconds."""
@@ -4859,14 +5383,14 @@ def main() -> int:
     mp = phase_multiprocess(factory, decompile_crushmap, smi)
     print(f"  B1 launches in the OSD processes (their wrappers' counts): phase 20 "
           f"{mp['launches']}, phase 21 {mp['fleet']['launches']}, phase 22's mgr window "
-          f"{mp['mgr']['launches']}", flush=True)
+          f"{mp['mgr']['launches']}, phase 23 {mp['rbd']['launches_total']}", flush=True)
     phase_multiprocess_bench(smi)
 
     phase("phase 22 (cont.): the chaos harness, the recovery A/B and daemon_bench --mgr on "
           "the card")
     chaos = phase_chaos(gc, cc, factory, smi)
 
-    phase("phase 23: processes left")
+    phase("phase 24: processes left")
 
     kernels = [{
         "name": "gf_matmul_packed",
@@ -4874,7 +5398,7 @@ def main() -> int:
         "source": "ceph_tpu_torch/csrc/gf_matmul.cu",
         "replaces": "ceph_tpu/ops/gf_pallas.py:141",
         "launches": (launches + daemon["launches"] + mp["launches"] + mp["fleet"]["launches"]
-                     + mp["mgr"]["launches"] + chaos["b1"]),
+                     + mp["mgr"]["launches"] + mp["rbd"]["launches_total"] + chaos["b1"]),
         "max_abs_err": max_err,
         "ms": times["ms"],
         "held_ms": times["held_ms"],
@@ -4960,7 +5484,7 @@ def main() -> int:
     if left:
         raise AssertionError(f"processes still running: {left}")
     print("  none", flush=True)
-    phase("phase 24: kernels and the result")
+    phase("phase 25: kernels and the result")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

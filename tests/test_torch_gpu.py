@@ -358,3 +358,80 @@ def test_chaos_live_on_card_launches_b1():
     assert gc.gf_matmul_packed.launches > before
     assert report["lost"] == [] and report["scrub_errors"] == 0
     assert report["p99_s"] <= report["p99_budget_s"]
+
+
+@pytest.mark.gpu
+def test_rbd_image_on_an_ec_pool_on_card():
+    """An image of order 22 on a k2m2 pool of an in-process cluster on the
+    card: its 4 MiB writes, a read-modify-write, a snapshot read and the
+    degraded read-back after an OSD stops launch B1 through each primary's
+    EncodeService, and every read is exact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on one)")
+    import asyncio
+    import contextlib
+
+    from ceph_tpu_torch.common.config import Config
+    from ceph_tpu_torch.mon import MonMap, Monitor
+    from ceph_tpu_torch.msg.messenger import next_dispatch_event
+    from ceph_tpu_torch.osd.daemon import OSDService
+    from ceph_tpu_torch.rados.client import Rados
+    from ceph_tpu_torch.rbd import Image
+    from ceph_tpu_torch.vstart import initial_osdmap
+
+    async def main():
+        cfg = Config()
+        for key, value in (("mon_lease", 0.1), ("mon_election_timeout", 0.4),
+                           ("osd_heartbeat_interval", 0.15), ("osd_heartbeat_grace", 2)):
+            cfg.set(key, value)
+        monmap = MonMap(addrs=[("127.0.0.1", 0)] * 3)
+        mons = [Monitor(r, monmap, initial_osdmap(6), config=cfg) for r in range(3)]
+        for m in mons:
+            await m.bind()
+        for m in mons:
+            m.go()
+        osds = {}
+        for i in range(6):
+            osds[i] = OSDService(i, monmap, config=cfg)
+            await osds[i].start()
+        rados = Rados("client.rbdgpu", monmap, config=cfg)
+        await rados.connect()
+        await rados.mon_command("osd erasure-code-profile set", {
+            "name": "k2m2", "profile": {"plugin": "tpu", "k": "2", "m": "2"}})
+        await rados.mon_command("osd pool create", {
+            "pool_id": 2, "crush_rule": 0, "erasure_code_profile": "k2m2", "pg_num": 8})
+        io = rados.io_ctx(2)
+        obj = 4 << 20
+        data = bytearray(np.random.default_rng(14).bytes(16 * obj))
+        launches = [gc.gf_matmul_packed.launches]
+        img = await Image.create(io, "vol", 1 << 30, order=22)
+        img = await Image.open(io, "vol", exclusive=True)
+        for off in range(0, len(data), obj):
+            await img.write(off, bytes(data[off:off + obj]))
+        await img.snap_create("s")
+        before = bytes(data)
+        data[obj + 100:obj + 4196] = b"\x5a" * 4096
+        await img.write(obj + 100, b"\x5a" * 4096)
+        launches.append(gc.gf_matmul_packed.launches)
+        assert await img.read(0, len(data)) == data
+        assert await img.read(0, len(data), snap_name="s") == before
+        assert await img.diff("s") == [1]
+        assert await img.object_map_check() == []
+        await osds.pop(0).stop()
+        leader = next(m for m in mons if m.is_leader)
+        while not leader.osdmap.is_down(0):
+            with contextlib.suppress(asyncio.TimeoutError):
+                await asyncio.wait_for(next_dispatch_event(), 0.25)
+        launches.append(gc.gf_matmul_packed.launches)
+        assert await img.read(0, len(data)) == data
+        launches.append(gc.gf_matmul_packed.launches)
+        await img.close()
+        await rados.shutdown()
+        for o in osds.values():
+            await o.stop()
+        for m in mons:
+            await m.stop()
+        return launches[1] - launches[0], launches[3] - launches[2]
+
+    writes, degraded = asyncio.run(asyncio.wait_for(main(), 180))
+    assert writes > 0 and degraded > 0

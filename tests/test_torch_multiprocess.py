@@ -181,9 +181,8 @@ def test_entry_points_need_a_device(tmp_path, monkeypatch):
         vstart.VStart(str(tmp_path / "x"))
     with pytest.raises(RuntimeError, match="cuda"):
         daemon_bench.run(["--multiprocess"])
-    for kind in ("mds", "rgw"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            vstart.VStart(str(tmp_path / "y"), device="cpu").start_daemon(kind, 0)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        vstart.VStart(str(tmp_path / "y"), device="cpu").start_daemon("rgw", 0)
 
     builds = []
     monkeypatch.setattr(cuda_build, "build", lambda *a: builds.append("cuda"))
@@ -192,10 +191,30 @@ def test_entry_points_need_a_device(tmp_path, monkeypatch):
     v = vstart.VStart(str(tmp_path / "z"), n_mons=1, n_osds=2, device="cpu")
     v.start()
     v.start_daemon("mgr", 0)
-    assert v.extra == {("mgr", 0): ("mgr", 0)}
+    v.start_daemon("mds", 0)
+    assert v.extra == {("mgr", 0): ("mgr", 0), ("mds", 0): ("mds", 0)}
     assert builds == [] and v.spec.extras == {"device": "cpu"}
     assert vstart.ClusterSpec.load(v.spec_path).device == "cpu"
     assert vstart.VStart(str(tmp_path / "w"), device="cpu").client().objecter.device.type == "cpu"
+
+
+def test_mds_main_needs_a_device_and_rgw_stays_refused(tmp_path):
+    """`python -m ceph_tpu_torch.cephfs` is the mds daemon main: with no
+    device in the spec it opens cuda through init_device, as every kind
+    does, and exits non-zero without a card; the daemon main refuses the
+    rgw kind as not ported."""
+    from ceph_tpu_torch import vstart
+
+    spec = vstart.ClusterSpec(mon_addrs=[("127.0.0.1", 1)], n_osds=1, run_dir=str(tmp_path))
+    spec.save(str(tmp_path / "spec.json"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "ceph_tpu_torch.cephfs", "--id", "0", "--spec",
+         str(tmp_path / "spec.json")], cwd=REPO_ROOT, capture_output=True, text=True,
+        timeout=120, env={**os.environ, **CHILD_ENV})
+    assert proc.returncode != 0
+    assert "torch.cuda.is_available() is false" in proc.stderr
+    with pytest.raises(SystemExit, match="rgw.*not ported"):
+        vstart.daemon_main("rgw", 0, str(tmp_path / "spec.json"))
 
 
 async def http_get(port: int, path: str) -> tuple[int, bytes]:
@@ -248,6 +267,69 @@ def test_vstart_mgr_process_scrapes_every_osd(tmp_path):
     finally:
         rcs = v.stop(signal.SIGTERM)
     assert rcs == {**{"mon.0": 0, "mgr.0": 0}, **{f"osd.{i}": 0 for i in range(n_osds)}}
+
+
+@pytest.mark.slow
+def test_vstart_mds_processes_fail_over(tmp_path):
+    """Two mds processes spawned by VStart (`python -m ceph_tpu_torch.cephfs`)
+    on the replicated pool: the OSD mains registered the fs and journal
+    classes, the first mds takes the rank, a client mounts and writes; the
+    active is SIGKILLed, the standby takes the rank in the mon's FSMap and
+    replays the journal, every file reads back and the new active serves a
+    mkdir; SIGTERM stops the rest, exit code 0."""
+    from ceph_tpu_torch.cephfs import CephFSClient
+    from ceph_tpu_torch.vstart import VStart
+
+    v = VStart(str(tmp_path), n_mons=1, n_osds=3, device="cpu", env=CHILD_ENV,
+               config={"mds_beacon_interval": 0.2, "mds_beacon_grace": 1.5})
+    v.spec.extras["mds_data_pool"] = 1
+    v.spec.save(v.spec_path)
+
+    async def fsmap(r) -> dict:
+        return (await r.mon_command("fs map"))["fsmap"]
+
+    async def until(r, pred, what):
+        loop = asyncio.get_running_loop()
+        end = loop.time() + 120
+        while not pred(await fsmap(r)):
+            assert loop.time() < end, what
+            await asyncio.sleep(0.3)
+
+    async def main():
+        await asyncio.to_thread(v.wait_started, 120)
+        r = v.client()
+        await r.connect()
+        await v.wait_healthy(rados=r, timeout=120)
+        await r.mon_command("osd pool create", {
+            "pool_id": 1, "crush_rule": 1, "size": 3, "pg_num": 8})
+        v.start_daemon("mds", 0)
+        await until(r, lambda fm: "mds.0" in str(fm.get("active")), "mds.0 never active")
+        v.start_daemon("mds", 1)
+        await until(r, lambda fm: "mds.1" in str(fm.get("standbys")), "no standby")
+        fs = CephFSClient(r, 1)
+        await fs.mount()
+        await fs.mkfs()
+        await fs.mkdir("/docs")
+        files = {f"/docs/f{i}": bytes([i]) * (1000 * i + 1) for i in range(4)}
+        for path, data in files.items():
+            await fs.write_file(path, data)
+        proc = v.extra.pop(("mds", 0))
+        proc.kill()
+        proc.wait(timeout=30)
+        await until(r, lambda fm: "mds.1" in str(fm.get("active")), "no failover")
+        assert set(await fs.listdir("/docs")) == {p.rsplit("/", 1)[1] for p in files}
+        for path, data in files.items():
+            assert await fs.read_file(path) == data
+        await fs.mkdir("/docs/after")
+        assert "after" in await fs.listdir("/docs")
+        await r.shutdown()
+
+    v.start()
+    try:
+        run(main(), 240)
+    finally:
+        rcs = v.stop(signal.SIGTERM)
+    assert rcs == {"mon.0": 0, "mds.1": 0, **{f"osd.{i}": 0 for i in range(3)}}
 
 
 @pytest.mark.slow

@@ -56,7 +56,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "tools/fleet_tool.py", "tools/bench_cluster.py", "sim/chaos.py",
                  "tools/chaos_tool.py", "mgr/metrics.py", "mgr/traces.py", "mgr/prometheus.py",
                  "mgr/autoscaler.py", "mgr/dashboard.py", "mgr/daemon.py", "mgr/__main__.py",
-                 "tools/ceph_top.py", "tools/trace_tool.py"):
+                 "tools/ceph_top.py", "tools/trace_tool.py", "rbd/__init__.py",
+                 "rbd/image.py", "journal/__init__.py", "journal/journal.py",
+                 "cephfs/__init__.py", "cephfs/__main__.py", "cephfs/fs.py",
+                 "cephfs/client.py", "cephfs/mds.py"):
         assert os.path.join(REPO, "ceph_tpu_torch", *part.split("/")) in files
     bad = [
         (os.path.relpath(path, REPO), mod)
@@ -166,6 +169,11 @@ def test_default_device_entry_points_raise_without_a_card(tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         MgrService("mgr.x", monmap)
     assert MgrService("mgr.x", monmap, device="cpu").device.type == "cpu"
+    from ceph_tpu_torch.cephfs import MDSService
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        MDSService("mds.x", monmap, 1)
+    assert MDSService("mds.x", monmap, 1, device="cpu").device.type == "cpu"
     assert chaos_tool.LiveCluster(chaos_tool.chaos_config(), device="cpu").device.type == "cpu"
 
     import asyncio
