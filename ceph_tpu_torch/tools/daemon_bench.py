@@ -33,6 +33,7 @@ import json
 import os
 import sys
 import time
+from pathlib import Path
 
 from ceph_tpu_torch.device import resolve_device
 
@@ -533,7 +534,7 @@ async def client_worker(args) -> dict:
     # otherwise be read before it wrote)
     if args.hot_set:
         wrote = os.path.join(spec.run_dir, "bench-wrote.{}")
-        open(wrote.format(args.worker_id), "w").close()
+        await asyncio.to_thread(Path(wrote.format(args.worker_id)).touch)
         while not all(os.path.exists(wrote.format(w)) for w in range(args.clients)):
             await asyncio.sleep(0.05)
         rnames = [

@@ -29,9 +29,9 @@ card). A card can be opened by many processes, so every OSD's
 builds the CUDA and native libraries before it spawns anything, and each
 daemon main creates its context and loads its libraries before its loop
 starts, so neither a build nor a context creation ever stalls a heartbeat.
-``start_daemon("mgr", i)`` spawns a manager and ``start_daemon("mds", i)`` a
-metadata server on the same device; the rgw daemon is not ported, and
-``start_daemon`` raises for it.
+``start_daemon("mgr", i)`` spawns a manager, ``start_daemon("mds", i)`` a
+metadata server and ``start_daemon("rgw", i)`` an S3 gateway, each on the
+same device.
 """
 
 from __future__ import annotations
@@ -270,10 +270,10 @@ async def _run_forever(stop_evt: asyncio.Event) -> None:
 
 def daemon_main(kind: str, ident: int, spec_path: str) -> None:
     """Shared entry point behind
-    ``python -m ceph_tpu_torch.{mon,osd,mgr,cephfs}``."""
+    ``python -m ceph_tpu_torch.{mon,osd,mgr,cephfs,rgw}``."""
     spec = ClusterSpec.load(spec_path)
-    if kind not in ("mon", "osd", "mgr", "mds"):
-        raise SystemExit(f"daemon kind {kind!r} is not ported to ceph_tpu_torch")
+    if kind not in ("mon", "osd", "mgr", "mds", "rgw"):
+        raise SystemExit(f"unknown daemon kind {kind!r}")
     # context and kernel libraries now, never on the daemon's loop
     device = init_device(spec.device)
     from ceph_tpu_torch.common.kv import FileDB
@@ -292,8 +292,8 @@ def daemon_main(kind: str, ident: int, spec_path: str) -> None:
 
         cfg = spec.build_config()
         keyring = spec.bytes_keyring()
-        if kind in ("mgr", "mds"):
-            db = None  # a manager or an mds keeps no store of its own
+        if kind in ("mgr", "mds", "rgw"):
+            db = None  # a manager, an mds or a gateway keeps no store
         elif kind == "osd" and cfg.get("osd_objectstore") == "memstore":
             from ceph_tpu_torch.common.kv import MemDB
 
@@ -352,6 +352,37 @@ def daemon_main(kind: str, ident: int, spec_path: str) -> None:
             await mds.start()
             started.set()
             print(f"mds.{ident} up at {mds.addr} on {device}", flush=True)
+        elif kind == "rgw":
+            from types import SimpleNamespace
+
+            from ceph_tpu_torch.rados.client import Rados
+            from ceph_tpu_torch.rgw import ObjectGateway, S3Frontend
+
+            rados = Rados(f"client.rgw{ident}", spec.monmap(), config=cfg,
+                          keyring=keyring, device=device)
+            gw = ObjectGateway(
+                rados.io_ctx(int(spec.extras.get("rgw_data_pool", 2))),
+                index_ioctx=rados.io_ctx(
+                    int(spec.extras.get("rgw_index_pool", 1))),
+            )
+            front = S3Frontend(gw, users=dict(spec.extras.get("rgw_users") or {}))
+
+            async def stop_rgw():
+                await front.stop()
+                await rados.shutdown()
+
+            daemon = SimpleNamespace(stop=stop_rgw)
+            _install_term_handler(loop, lambda: _stop(daemon))
+            await rados.connect()
+            port = await front.start()
+            # the kernel-assigned port is published for the launcher; one
+            # boot-time run-file write, before any IO is served
+            with open(  # cephlint: disable=async-blocking
+                os.path.join(spec.run_dir, f"rgw.{ident}.port"), "w"
+            ) as f:
+                f.write(str(port))
+            started.set()
+            print(f"rgw.{ident} serving S3 on :{port} on {device}", flush=True)
         else:
             from ceph_tpu_torch.osd.daemon import OSDService
 
@@ -359,6 +390,7 @@ def daemon_main(kind: str, ident: int, spec_path: str) -> None:
             from ceph_tpu_torch.journal.journal import (
                 register_journal_classes,
             )
+            from ceph_tpu_torch.rgw.gateway import register_rgw_classes
 
             osd = OSDService(
                 ident, spec.monmap(), db=db, config=cfg, keyring=keyring,
@@ -366,10 +398,10 @@ def daemon_main(kind: str, ident: int, spec_path: str) -> None:
             )
             # the reference OSD dlopens every cls plugin at boot: beside
             # the built-in families, a daemon-main OSD registers the
-            # cephfs and journal classes (the rgw classes come with the
-            # rgw module, which is not ported)
+            # cephfs, journal and rgw classes
             register_fs_classes(osd)
             register_journal_classes(osd)
+            register_rgw_classes(osd)
             osd.perf_collection.add(KernelCounters(osd.name))
             daemon = osd
             _install_term_handler(loop, lambda: _stop(daemon))
@@ -453,13 +485,13 @@ class VStart:
 
     # -- process management ---------------------------------------------------
 
-    #: daemon kind -> python module hosting its __main__ (rgw is not
-    #: ported)
+    #: daemon kind -> python module hosting its __main__
     _KIND_MODULE = {
         "mon": "ceph_tpu_torch.mon",
         "osd": "ceph_tpu_torch.osd",
         "mgr": "ceph_tpu_torch.mgr",
         "mds": "ceph_tpu_torch.cephfs",
+        "rgw": "ceph_tpu_torch.rgw",
     }
 
     def _spawn(self, kind: str, ident: int) -> subprocess.Popen:
@@ -494,19 +526,15 @@ class VStart:
         self.osds[osd_id] = self._spawn("osd", osd_id)
 
     def start_daemon(self, kind: str, ident: int) -> None:
-        """Spawn a mgr or mds process on the cluster's device. The
-        reference also spawns rgw daemons here; that module is not
-        ported."""
+        """Spawn a mgr, mds or rgw process on the cluster's device."""
         if kind not in self._KIND_MODULE:
-            raise NotImplementedError(
-                f"vstart: {kind} daemons are not ported to ceph_tpu_torch"
-            )
+            raise ValueError(f"vstart: no daemon kind {kind!r}")
         self.extra[(kind, ident)] = self._spawn(kind, ident)
 
     def daemon_port(self, kind: str, ident: int,
                     timeout: float = 60.0) -> int:
-        """Kernel-assigned port a mgr daemon published in its run file
-        (vstart.sh's out-dir convention)."""
+        """Kernel-assigned port a mgr or rgw daemon published in its run
+        file (vstart.sh's out-dir convention)."""
         path = os.path.join(
             self.spec.run_dir, f"{kind}.{ident}.port"
         )

@@ -35,7 +35,8 @@ EncodeService's mesh path. Then the cluster as its users deploy it: a
 process per monitor and per OSD daemon (vstart), each OSD on BlockStore and
 each with its own CUDA context, its EncodeService encoding, degraded-decoding
 and recovering through the GF(2^8) kernel; on it, block images with their
-snapshots, clones and mirror, and CephFS through mds processes. Phases:
+snapshots, clones and mirror, CephFS through mds processes, and S3 objects
+through an rgw process. Phases:
 
   1. the card: name, count, and nvidia-smi's name and power limit;
   2. build every kernel under ceph_tpu_torch/csrc with nvcc (ptxas report);
@@ -71,7 +72,7 @@ snapshots, clones and mirror, and CephFS through mds processes. Phases:
      RS(8,3) pool): CrushTester --show-statistics, the port's crushtool
      --test, and map_rule; no rule may go to the scalar mapper;
   8. its outputs: map_rule's rows equal the plain version on the card (all
-     1M of rule 0, the first 2^18 of rule 1), the first 1024 x equal the
+     1M of rule 0, the first 2^18 of rule 1), the first 512 x equal the
      scalar mapper, and the tester's and
      crushtool's outputs agree;
   9. times (CUDA events; host clock for whole calls): each stage's kernel
@@ -95,7 +96,7 @@ snapshots, clones and mirror, and CephFS through mds processes. Phases:
       then
       BalancerModule.run_once in upmap and crush-compat modes through an
       in-process mon client; then its outputs: every PG an upmap touched
-      and 1024 sampled PGs per pool equal the scalar pipeline (worker
+      and 512 sampled PGs per pool equal the scalar pipeline (worker
       processes), one replica per host, no duplicate OSD, the move budget
       and spread held, and the committed compat weight-set maps as the
       run-time overlay of the same weights does;
@@ -151,7 +152,7 @@ snapshots, clones and mirror, and CephFS through mds processes. Phases:
       crc32c and store writes; degraded-get GB/s; recover seconds) and the
       device's idle share over 16 puts under torch.profiler, which must show
       the kernel in a put and in a degraded get; 16 sampled EC objects' shards
-      against the CPU isa codec; then the same sequence at 8 objects a pool
+      against the CPU isa codec; then the same sequence at 4 objects a pool
       on the card and on the CPU, whose stores must end equal;
   17. the native plugin built from ceph_tpu_torch/native/ec_plugin.cpp: its
       k=8 m=3 chunks equal isa's on the card (cauchy, reed_sol_van) on 4
@@ -263,8 +264,8 @@ snapshots, clones and mirror, and CephFS through mds processes. Phases:
       10 GiB image of order 22 (4 MiB objects) in pool 1 opened exclusive,
       writing 256 MiB in 4 MiB writes, 4 in flight on disjoint objects
       (`rbd bench --io-size 4M --io-total 1G --io-threads 16` over the
-      four), then a 4 KiB read-modify-write in each of its objects; image
-      0's snapshot, 16 overwrites read at the snapshot and listed exactly
+      four), then a 4 KiB read-modify-write in each of its first 32
+      objects; image 0's snapshot, 16 overwrites read at the snapshot and listed exactly
       by `diff`, a protected clone and a copy-up write into it; every
       image read back whole (its written span and a hole) and
       `object_map_check` empty on each; one OSD process SIGKILLed, the
@@ -278,9 +279,26 @@ snapshots, clones and mirror, and CephFS through mds processes. Phases:
       rank and answering a resent request from its journal replay, every
       file equal; after the SIGTERM, every rbd_data head object's shards
       checked offline with phase 20's;
-  24. no process this script started is left (nvcc, nvidia-smi, the
+  24. the object gateway on phase 20's cluster, after phase 23 and before
+      the SIGTERM, B1 counted in the OSD processes over its window: VStart
+      spawns an rgw process on the card with phase 23's mds processes, so
+      that it boots while the images are written (`python -m
+      ceph_tpu_torch.rgw`: S3 over HTTP, data in pool 1, the bucket index in
+      pool 2, whose omap an EC pool cannot hold); 4 client processes, each with its own SigV4
+      client written from the AWS specification and 5 requests in flight
+      (MinIO warp's `put` defaults: 10 MiB objects, 20 concurrent), create
+      a bucket, PUT 16 objects of 10 MiB, upload 64 MiB in 8 MiB parts
+      (the AWS CLI's multipart defaults) and complete it, GET everything
+      back (bytes and ETag, the crc32c, exact), page through the bucket's
+      listing 5 keys at a time, and put one key twice in a versioned bucket
+      and list its versions; the rgw process exits 0 on SIGTERM, and the
+      gateway's data objects, parts and manifests in pool 1 are checked
+      offline with phase 20's (the CPU codec's parity of phases 20, 23 and
+      24's objects, all known from the seed, made in worker processes from
+      phase 18 on);
+  25. no process this script started is left (nvcc, nvidia-smi, the
       worker processes, the daemons and the tools are all waited for);
-  25. a `kernels` JSON line, then the `ok` JSON line, last.
+  26. a `kernels` JSON line, then the `ok` JSON line, last.
 
 Each kernel is timed three ways: `ms`, its call time (CUDA events around
 back-to-back calls of its wrapper, as every share and comparison uses);
@@ -295,8 +313,12 @@ It needs a CUDA card and the repository around it; with neither it fails.
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import contextlib
 import ctypes
+import functools
+import hashlib
+import hmac
 import io
 import json
 import os
@@ -306,6 +328,7 @@ import signal
 import subprocess
 import sys
 import time
+import urllib.parse
 
 import numpy as np
 import torch
@@ -328,7 +351,7 @@ CRUSH_X = 1_000_000
 #: (rule, result_max): BASELINE's replicated rule and an RS(8,3) EC rule
 CRUSH_RULES = ((0, 3), (1, K + M))
 #: x checked against the scalar mapper, a cut for the 1200 s limit
-SCALAR_CHECK = 1024
+SCALAR_CHECK = 512
 #: x of each rule's map_rule rows checked against the plain version in phase
 #: 8 (and its time): all of rule 0's; rule 1's plain version took 25 s over
 #: all 1M x, cut to the first 2^18 for the 1200 s limit
@@ -1118,7 +1141,7 @@ BAL_CHANGES = 2048
 #: for the 1200 s limit, the pass under torch.profiler a second reading
 BAL_PASSES = 1
 #: PGs a pool sampled for the scalar check, a cut for the 1200 s limit
-BAL_SAMPLE = 1024
+BAL_SAMPLE = 512
 BAL_SCENARIO = dict(n_osd=BAL_OSDS, rep_pg_num=BAL_REP_PGS, ec_pg_num=BAL_EC_PGS,
                     seed=1, epochs=1, max_changes=BAL_CHANGES)
 PSIM_ARGV = ["--scenario", "--osds", str(BAL_OSDS), "--rep-pgs", str(BAL_REP_PGS),
@@ -2247,7 +2270,7 @@ RADOS_POOLS = {
 RADOS_OVERWRITES = 16
 RADOS_SAMPLED = 16
 #: objects per pool of the run held against a MiniCluster on the CPU
-RADOS_IDENTITY_OBJECTS = 8
+RADOS_IDENTITY_OBJECTS = 4
 #: B3, the kernel under every RS put, degraded get and EC recovery
 B3_KERNEL = "gf_matmul_bytes_kernel"
 
@@ -3690,8 +3713,8 @@ def mp_check_stores(run_dir: str, want: dict, factory, parity: dict | None = Non
     # an object is its bytes [i*size, (i+1)*size), as encode() cuts them; an
     # object of another size (the journaled image's) through encode() itself
     parity = parity or {}
-    chunks = {name: [want[name][i * size:(i + 1) * size] for i in range(K)] + parity[name]
-              for name in parity}
+    chunks = {name: [want[name][i * (len(want[name]) // K):(i + 1) * (len(want[name]) // K)]
+                     for i in range(K)] + parity[name] for name in parity}
     for name in set(want) - set(parity):
         if len(want[name]) != OBJECT_BYTES:
             made = cpu.encode(set(range(n)), want[name])
@@ -3900,10 +3923,12 @@ async def mp_sequence(v, decompile_crushmap, smi: str) -> dict:
     return out
 
 
-def phase_multiprocess(factory, decompile_crushmap, smi: str) -> dict:
+def phase_multiprocess(factory, decompile_crushmap, smi: str, parity) -> dict:
     """Phase 20: the port's cluster as its users deploy it, one process per
     daemon on the card, through vstart.VStart; B1 counted in every OSD
-    process per window over `osd_admin`. Returns B1's launches and times."""
+    process per window over `osd_admin`; `parity`, a future of
+    `offline_parity()`, for the offline check. Returns B1's launches and
+    times."""
     import shutil
     import tempfile
 
@@ -3924,7 +3949,9 @@ def phase_multiprocess(factory, decompile_crushmap, smi: str) -> dict:
             phase("phase 22: the manager daemon on this cluster")
             mgr = asyncio.run(asyncio.wait_for(mgr_sequence(v, smi), 600))
             phase("phase 23: block images, their mirror and CephFS on this cluster")
-            rbd = asyncio.run(asyncio.wait_for(rbd_sequence(v, smi, sorted(out["want"])), 900))
+            rbd = asyncio.run(asyncio.wait_for(rbd_sequence(v, smi), 900))
+            phase("phase 24: the object gateway (S3) on this cluster")
+            rgw = asyncio.run(asyncio.wait_for(rgw_sequence(v, smi), 600))
         except BaseException:
             for name in v.exited() or ("mon.0", "osd.0"):
                 print(f"  {name}'s log ends:\n{v.log_tail(name)}", flush=True)
@@ -3933,8 +3960,8 @@ def phase_multiprocess(factory, decompile_crushmap, smi: str) -> dict:
             rcs = v.stop(signal.SIGTERM)
         print(f"  SIGTERM to every daemon: exit codes {rcs} (at {time.perf_counter() - T0:.1f} s)",
               flush=True)
-        # the mgr and the mds that took the rank (its peer was SIGKILLed)
-        if any(rcs.values()) or len(rcs) != MP_MONS + MP_OSDS + 2:
+        # the mgr, the mds that took the rank (its peer was SIGKILLed), the rgw
+        if any(rcs.values()) or len(rcs) != MP_MONS + MP_OSDS + 3 or rcs.get("rgw.0") != 0:
             raise AssertionError(f"a daemon did not stop cleanly: {rcs}")
         names = ("EncodeService launches", "objects", "B1 wrapper launches", "pushes")
         for window, counts in out["launches"].items():
@@ -3943,21 +3970,27 @@ def phase_multiprocess(factory, decompile_crushmap, smi: str) -> dict:
             if counts[0] < 1 or counts[2] < 1:
                 raise AssertionError(f"B1 did not launch in the {window} window: {counts}")
         t = time.perf_counter()
+        if sorted(out["want"]) != sorted(mp_ec_names()):
+            raise AssertionError("phase 20 wrote other pool-1 objects than mp_ec_names()")
         heads = {**rbd_heads(), **rbd.pop("mirror_heads")}
-        checked = mp_check_stores(run_dir, {**out["want"], **heads}, factory, rbd.pop("parity"))
+        made = parity.result()
+        stored = rgw_stored(rgw["uploads"], rgw["vids"], made["parity"])
+        checked = mp_check_stores(run_dir, {**out["want"], **heads, **stored}, factory,
+                                  made["parity"])
         errors = mp_fsck(run_dir)
         print(f"  offline, the stopped stores: {checked} pool-{EC_POOL} shards of "
-              f"{len(out['want'])} phase-20 objects and {len(heads)} rbd_data head objects "
-              f"equal the CPU isa codec's chunks (their parity made in worker processes during "
-              f"phase 23's steps 5-6, {rbd['times']['parity_s']:.2f} s), each with its "
-              f"hinfo digest; objectstore_tool --op fsck error counts {errors} "
+              f"{len(out['want'])} phase-20 objects, {len(heads)} rbd_data head objects and "
+              f"{len(stored)} gateway objects (data, parts, manifests, versions) equal the CPU "
+              f"isa codec's chunks (the parity of the 4 MiB and larger ones made in "
+              f"{PARITY_WORKERS} worker processes from phase 18 on, {made['s']:.2f} s), each "
+              f"with its hinfo digest; objectstore_tool --op fsck error counts {errors} "
               f"({time.perf_counter() - t:.2f} s)", flush=True)
         if any(errors):
             raise AssertionError(f"fsck found errors: {errors}")
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
     return {"launches": sum(c[2] for c in out["launches"].values()), "times": out["times"],
-            "fleet": fleet, "mgr": mgr, "rbd": rbd}
+            "fleet": fleet, "mgr": mgr, "rbd": rbd, "rgw": rgw}
 
 
 def phase_multiprocess_bench(smi: str) -> None:
@@ -4580,10 +4613,11 @@ RBD_OBJECT = 1 << RBD_ORDER
 #: disjoint objects (after a first write alone: ROADMAP §C)
 RBD_SPAN = 256 << 20
 RBD_IN_FLIGHT = 4
-#: 4 KiB writes at seeded offsets, one in each data object of an image: each a
+#: 4 KiB writes at seeded offsets, one in each of an image's first 32 data
+#: objects (half of them: a cut for the 1200 s limit): each a
 #: read-modify-write of its 4 MiB object
 RBD_SMALL = 4096
-RBD_RMW = RBD_SPAN // RBD_OBJECT
+RBD_RMW = RBD_SPAN // RBD_OBJECT // 2
 #: image 0's 4 KiB overwrites after its snapshot
 RBD_SNAP_WRITES = 16
 #: the copy-up write into image 0's clone: 4 KiB inside its object 5
@@ -4599,7 +4633,7 @@ FS_DIRS, FS_FILES, FS_MDS, FS_IN_FLIGHT = 16, 4, 2, 4
 
 def rbd_patches(worker: int) -> list[tuple[int, bytes]]:
     """Image `worker`'s 4 KiB read-modify-writes: one at a seeded offset in
-    each data object, in a seeded order."""
+    each of its first RBD_RMW data objects, in a seeded order."""
     rng = np.random.default_rng([SEED + 23, worker, 1])
     return [(int(o) * RBD_OBJECT + int(rng.integers(0, RBD_OBJECT - RBD_SMALL + 1)),
              rng.bytes(RBD_SMALL)) for o in rng.permutation(RBD_RMW)]
@@ -4652,30 +4686,64 @@ def rbd_heads() -> dict:
     return {name: data for w in range(MP_CLIENTS) for name, data in rbd_image_heads(w).items()}
 
 
-def _cpu_parity(job):
+def mp_ec_names() -> list[str]:
+    """Phase 20's pool-1 objects: its writes, then those made with the
+    victims down."""
+    return [f"m-{EC_POOL}-{i}" for i in range(MP_OBJECTS[EC_POOL] + MP_CRASH_WRITES)]
+
+
+def parity_heads(what) -> dict:
+    """{object name: bytes} of one share of the offline check: "mp" is
+    phase 20's pool-1 objects, an int w image w's head objects (and, for
+    image 0, the clone's object), ("rgw", w) phase 24's client w's objects
+    and parts (`rgw_heads`). All are known from the seed."""
+    if what == "mp":
+        return {name: mp_object(*map(int, name.split("-")[1:])) for name in mp_ec_names()}
+    if isinstance(what, tuple):
+        return rgw_heads(what[1])
+    return rbd_image_heads(what)
+
+
+def _cpu_parity(whats):
     """Worker: the CPU isa codec's parity chunks, for the offline check, of
-    image `what`'s head objects (and, for image 0, the clone's object), or,
-    given a list of phase 20's object names, of those."""
+    `parity_heads(what)` for each of `whats`, on one thread."""
     from ceph_tpu_torch.ec.registry import factory
 
-    what, threads = job
-    torch.set_num_threads(threads)
+    torch.set_num_threads(1)
     cpu = factory("isa", {k: v for k, v in DAEMON_EC_PROFILE.items() if k != "plugin"},
                   device="cpu")
-    if isinstance(what, list):
-        heads = {name: mp_object(*map(int, name.split("-")[1:])) for name in what}
-    else:
-        heads = rbd_image_heads(what)
-    names, objs = list(heads), list(heads.values())
-    size = len(objs[0]) // K
     out = {}
-    for lo in range(0, len(names), 16):
-        data = torch.from_numpy(np.frombuffer(b"".join(objs[lo:lo + 16]), np.uint8)
-                                .reshape(-1, K, size).copy())
-        parity = cpu.encode_array(data).numpy()
-        for j, name in enumerate(names[lo:lo + 16]):
-            out[name] = [parity[j, i].tobytes() for i in range(M)]
+    for what in whats:
+        heads = parity_heads(what)
+        for size in sorted({len(obj) for obj in heads.values()}):
+            names = [name for name, obj in heads.items() if len(obj) == size]
+            for lo in range(0, len(names), 16):
+                data = torch.from_numpy(np.frombuffer(
+                    b"".join(heads[n] for n in names[lo:lo + 16]), np.uint8)
+                    .reshape(-1, K, size // K).copy())
+                parity = cpu.encode_array(data).numpy()
+                for j, name in enumerate(names[lo:lo + 16]):
+                    out[name] = [parity[j, i].tobytes() for i in range(M)]
     return out
+
+
+#: the offline check's CPU parity runs in this many single-threaded worker
+#: processes beside phases 18-19 (one event loop and the card), so that it
+#: takes no wall time of its own
+PARITY_WORKERS = 5
+
+
+def offline_parity() -> dict:
+    """The CPU isa codec's parity of every object phases 20, 23 and 24 write
+    to pool 1 in 4 MiB or larger pieces, made in PARITY_WORKERS processes;
+    returns it with the seconds it took."""
+    t = time.perf_counter()
+    whats = ["mp", *range(MP_CLIENTS), *(("rgw", w) for w in range(RGW_CLIENTS))]
+    parity = {}
+    for part in in_workers("_cpu_parity", [whats[i::PARITY_WORKERS]
+                                           for i in range(PARITY_WORKERS)]):
+        parity.update(part)
+    return {"parity": parity, "s": time.perf_counter() - t}
 
 
 def rbd_marker(spec_path: str, tag: str) -> str:
@@ -5009,38 +5077,26 @@ async def cephfs_window(v, rados, smi: str) -> dict:
     return {"fs_write_s": write_s, "failover_rank_s": rank_s, "failover_s": failover_s}
 
 
-async def rbd_sequence(v, smi: str, mp_names: list[str]) -> dict:
+async def rbd_sequence(v, smi: str) -> dict:
     """Phase 23 on phase 20's running cluster: block images, their mirror and
-    CephFS. Returns B1's launches in the image windows, the times, and the
-    CPU codec's parity of the image heads and of phase 20's objects
-    (`mp_names`) for the offline check."""
+    CephFS. Returns B1's launches in the image windows and the times."""
     t0 = time.perf_counter()
     v.spec.extras["mds_data_pool"] = REP_POOL
+    v.spec.extras.update(RGW_EXTRAS)
     v.spec.save(v.spec_path)
-    for i in range(FS_MDS):  # they boot while the images are written
+    # the mds processes, and phase 24's gateway, boot while the images are
+    # written
+    for i in range(FS_MDS):
         v.start_daemon("mds", i)
+    v.start_daemon("rgw", 0)
     rados = v.client("client.rbdadmin")
     await rados.connect()
     c = MPCluster(v, rados)
     try:
         out = await rbd_window(v, c, rados, smi)
-        # the offline check's CPU parity of the image heads (written and read
-        # by now) and of phase 20's objects, in worker processes beside steps
-        # 5-6
-        t = time.perf_counter()
-        threads = max(1, (os.cpu_count() or 4) // (MP_CLIENTS + 1))
-        parity = asyncio.ensure_future(asyncio.to_thread(
-            in_workers, "_cpu_parity",
-            [(w, threads) for w in range(MP_CLIENTS)] + [(mp_names, threads)]))
-        try:
-            times, out["mirror_heads"] = await mirror_window(rados, smi)
-            out["times"].update(times)
-            out["times"].update(await cephfs_window(v, rados, smi))
-        finally:
-            out["parity"] = {}
-            for part in await parity:
-                out["parity"].update(part)
-        out["times"]["parity_s"] = time.perf_counter() - t
+        times, out["mirror_heads"] = await mirror_window(rados, smi)
+        out["times"].update(times)
+        out["times"].update(await cephfs_window(v, rados, smi))
     finally:
         await rados.shutdown()
     out["s"] = time.perf_counter() - t0
@@ -5050,6 +5106,309 @@ async def rbd_sequence(v, smi: str, mp_names: list[str]) -> dict:
           f"{ {w: n[2] for w, n in out['launches'].items()} }, EncodeService objects a launch "
           f"{widths}", flush=True)
     return out
+
+
+# -- phase 24: the object gateway (S3) ------------------------------------------------
+
+#: MinIO warp's `put` defaults (--obj.size 10MiB --concurrent 20): 4 client
+#: processes of 5 requests in flight; a count of objects a client instead of
+#: warp's 5-minute duration
+RGW_CLIENTS = 4
+RGW_IN_FLIGHT = 5
+RGW_OBJECT = 10 << 20
+RGW_OBJECTS = 16
+#: one multipart upload a client, in the AWS CLI's default 8 MiB parts (its
+#: multipart_threshold and multipart_chunksize)
+RGW_MULTIPART = 64 << 20
+RGW_PART = 8 << 20
+#: the listing's page (max-keys), and the versioned key's two bodies' size
+RGW_PAGE = 5
+RGW_VERSION_BYTES = 4096
+RGW_AK, RGW_SK, RGW_REGION = "AKSMOKE0000000000000", "smoke/secret/key/0000000000000", "us-east-1"
+#: the gateway's spec extras: data in the EC pool, the bucket index (omap,
+#: which an EC pool cannot hold) in the replicated one, one S3 user
+RGW_EXTRAS = {"rgw_data_pool": EC_POOL, "rgw_index_pool": REP_POOL,
+              "rgw_users": {RGW_AK: RGW_SK}}
+
+
+def rgw_object(worker: int, i: int) -> bytes:
+    """Client `worker`'s object i (i = RGW_OBJECTS: its multipart body; above:
+    its versioned key's bodies), from the seed."""
+    size = (RGW_OBJECT if i < RGW_OBJECTS else RGW_MULTIPART if i == RGW_OBJECTS
+            else RGW_VERSION_BYTES)
+    return np.random.default_rng([SEED + 24, worker, i]).bytes(size)
+
+
+def rgw_heads(worker: int) -> dict:
+    """Client `worker`'s 10 MiB objects under their data object names, and
+    its parts under `<bucket>/big#<n>` (the upload id is the gateway's)."""
+    out = {f"smoke{worker}/obj/{i:04d}": rgw_object(worker, i) for i in range(RGW_OBJECTS)}
+    body = rgw_object(worker, RGW_OBJECTS)
+    for n in range(RGW_MULTIPART // RGW_PART):
+        out[f"smoke{worker}/big#{n + 1}"] = body[n * RGW_PART:(n + 1) * RGW_PART]
+    return out
+
+
+def rgw_stored(uploads: list, vids: list, parity: dict) -> dict:
+    """Every object phase 24 left in pool 1, by the gateway's layout, with its
+    bytes: data objects, parts (their parity in `parity` renamed to the part
+    objects' names), each upload's manifest and the versioned key's bodies."""
+    out = {}
+    n_parts = RGW_MULTIPART // RGW_PART
+    for w, upload in enumerate(uploads):
+        for name, data in rgw_heads(w).items():
+            if "#" in name:
+                part = f"smoke{w}/big.__mp_{upload}.{int(name.split('#')[1]):05d}"
+                parity[part] = parity.pop(name)
+                name = part
+            out[name] = data
+        out[f"smoke{w}/big"] = json.dumps({"__manifest__": {
+            "multipart": upload, "parts": list(range(1, n_parts + 1)),
+            "sizes": [RGW_PART] * n_parts}}).encode()
+        for n, vid in enumerate(vids[w]):
+            out[f"vsmoke{w}/doc.__v_{vid}"] = rgw_object(w, RGW_OBJECTS + 1 + n)
+    return out
+
+
+class S3Client:
+    """An S3 client written from the AWS specification, independent of the
+    gateway's code: Signature Version 4 in the header flavour, the payload's
+    SHA-256 signed, over one HTTP/1.1 keep-alive connection."""
+
+    def __init__(self, port: int):
+        self.port, self.host = port, f"127.0.0.1:{port}"
+        self.conn = None
+
+    def signed_headers(self, method: str, path: str, query: dict, payload: bytes) -> dict:
+        amz_date = time.strftime("%Y%m%dT%H%M%SZ", time.gmtime())
+        digest = hashlib.sha256(payload).hexdigest()
+        headers = {"host": self.host, "x-amz-content-sha256": digest, "x-amz-date": amz_date}
+        names = sorted(headers)
+        quote = functools.partial(urllib.parse.quote, safe="-_.~")
+        creq = "\n".join([method, urllib.parse.quote(path, safe="/-_.~"),
+                          "&".join(f"{quote(k)}={quote(v)}" for k, v in sorted(query.items())),
+                          "".join(f"{h}:{headers[h]}\n" for h in names), ";".join(names), digest])
+        scope = f"{amz_date[:8]}/{RGW_REGION}/s3/aws4_request"
+        sts = "\n".join(["AWS4-HMAC-SHA256", amz_date, scope,
+                         hashlib.sha256(creq.encode()).hexdigest()])
+        key = ("AWS4" + RGW_SK).encode()
+        for part in (amz_date[:8], RGW_REGION, "s3", "aws4_request"):
+            key = hmac.new(key, part.encode(), hashlib.sha256).digest()
+        headers["authorization"] = (
+            f"AWS4-HMAC-SHA256 Credential={RGW_AK}/{scope}, SignedHeaders={';'.join(names)}, "
+            f"Signature={hmac.new(key, sts.encode(), hashlib.sha256).hexdigest()}")
+        return headers
+
+    async def request(self, method: str, path: str, query: dict | None = None,
+                      payload: bytes = b"", want: int = 200) -> tuple[dict, bytes]:
+        """Sends one request; raises unless the status is `want`. Returns the
+        response's headers and body."""
+        query = dict(query or {})
+        headers = self.signed_headers(method, path, query, payload)
+        headers["content-length"] = str(len(payload))
+        if self.conn is None:
+            self.conn = await asyncio.open_connection("127.0.0.1", self.port)
+        reader, writer = self.conn
+        qs = urllib.parse.urlencode(query)
+        lines = [f"{method} {urllib.parse.quote(path, safe='/-_.~')}{'?' + qs if qs else ''} "
+                 "HTTP/1.1"] + [f"{k}: {v}" for k, v in headers.items()]
+        writer.write(("\r\n".join(lines) + "\r\n\r\n").encode())
+        writer.write(payload)
+        await writer.drain()
+        status = int((await reader.readline()).split()[1])
+        rhdrs = {}
+        while (line := await reader.readline()) not in (b"\r\n", b"\n", b""):
+            name, _, value = line.decode().partition(":")
+            rhdrs[name.strip().lower()] = value.strip()
+        n = int(rhdrs.get("content-length", "0") or "0")
+        body = await reader.readexactly(n) if n and method != "HEAD" else b""
+        if status != want:
+            raise AssertionError(f"{method} {path} {query}: HTTP {status}, not {want}: "
+                                 f"{body[:300]!r}")
+        return rhdrs, body
+
+    async def close(self) -> None:
+        if self.conn is not None:
+            self.conn[1].close()
+            await self.conn[1].wait_closed()
+
+
+def xml_texts(body: bytes, tag: str) -> list[str]:
+    from xml.etree import ElementTree
+
+    return [e.text or "" for e in ElementTree.fromstring(body).iter(tag)]
+
+
+def _rgw_client(job):
+    """Worker: one S3 client process of phase 24, RGW_IN_FLIGHT connections to
+    the gateway. It creates its bucket, PUTs its objects, uploads and
+    completes its multipart object, GETs everything back (bytes and ETag
+    exact), pages through the listing, and puts one key twice in a versioned
+    bucket and lists the versions. Returns its windows and the requests'
+    seconds."""
+    from ceph_tpu_torch.common.crc import ceph_crc32c
+
+    port, worker = job
+    bucket = f"smoke{worker}"
+
+    def etag(data: bytes) -> str:
+        return f'"{ceph_crc32c(0xFFFFFFFF, data):08x}"'
+
+    async def run():
+        lanes = [S3Client(port) for _ in range(RGW_IN_FLIGHT)]
+        free = asyncio.Queue()
+        for lane in lanes:
+            free.put_nowait(lane)
+
+        async def call(*args, **kw):
+            lane = await free.get()
+            try:
+                return await lane.request(*args, **kw)
+            finally:
+                free.put_nowait(lane)
+
+        async def put(path, data, query=None):
+            hdrs, _ = await call("PUT", path, query, data)
+            if hdrs.get("etag") != etag(data):
+                raise AssertionError(f"PUT {path}: ETag {hdrs.get('etag')}, not {etag(data)}")
+            return hdrs
+
+        out = {}
+        await call("PUT", f"/{bucket}")
+        objs = {f"obj/{i:04d}": rgw_object(worker, i) for i in range(RGW_OBJECTS)}
+        t0 = time.time()
+        out["put_seconds"] = await daemon_gather(
+            [lambda k=k: put(f"/{bucket}/{k}", objs[k]) for k in objs], RGW_IN_FLIGHT)
+        out["put"] = (t0, time.time())
+
+        body = rgw_object(worker, RGW_OBJECTS)
+        parts = [body[n:n + RGW_PART] for n in range(0, RGW_MULTIPART, RGW_PART)]
+        t0 = time.time()
+        _, xml = await call("POST", f"/{bucket}/big", {"uploads": ""})
+        upload = xml_texts(xml, "UploadId")[0]
+        await daemon_gather([lambda n=n: put(f"/{bucket}/big", parts[n - 1], {
+            "partNumber": str(n), "uploadId": upload}) for n in range(1, len(parts) + 1)],
+            RGW_IN_FLIGHT)
+        t1 = time.time()
+        done = ("<CompleteMultipartUpload>" + "".join(
+            f"<Part><PartNumber>{n}</PartNumber><ETag>{etag(p)}</ETag></Part>"
+            for n, p in enumerate(parts, start=1)) + "</CompleteMultipartUpload>").encode()
+        _, xml = await call("POST", f"/{bucket}/big", {"uploadId": upload}, done)
+        out["multipart"] = (t0, t1, time.time())
+        whole = (f'"{ceph_crc32c(0xFFFFFFFF, "".join(etag(p)[1:-1] for p in parts).encode()):08x}'
+                 f'-{len(parts)}"')
+        if xml_texts(xml, "ETag") != [whole]:
+            raise AssertionError(f"the multipart ETag {xml_texts(xml, 'ETag')}, not {whole}")
+        out["upload"] = upload
+
+        async def get(key, data, tag):
+            hdrs, got = await call("GET", f"/{bucket}/{key}")
+            if got != data or hdrs.get("etag") != tag:
+                raise AssertionError(f"GET {bucket}/{key}: other bytes or ETag {hdrs.get('etag')}")
+
+        t0 = time.time()
+        out["get_seconds"] = await daemon_gather(
+            [lambda k=k: get(k, objs[k], etag(objs[k])) for k in objs]
+            + [lambda: get("big", body, whole)], RGW_IN_FLIGHT)
+        out["get"] = (t0, time.time())
+
+        # the bucket's listing, RGW_PAGE keys a page: the gateway serves
+        # ListObjects (version 1) paging, the marker being the page's last key
+        t0, keys, pages, marker = time.time(), [], 0, ""
+        while True:
+            _, xml = await call("GET", f"/{bucket}", {"max-keys": str(RGW_PAGE),
+                                                      "marker": marker})
+            page, sizes = xml_texts(xml, "Key"), list(map(int, xml_texts(xml, "Size")))
+            keys += page
+            pages += 1
+            if sizes != [len(objs.get(k, body)) for k in page]:
+                raise AssertionError(f"listing page {pages}: sizes {sizes}")
+            if xml_texts(xml, "IsTruncated") != ["true"]:
+                break
+            marker = page[-1]
+        if keys != sorted([*objs, "big"]):
+            raise AssertionError(f"the listing's keys {keys}")
+        out["list"] = (t0, time.time(), pages)
+
+        vbucket, docs = f"v{bucket}", [rgw_object(worker, RGW_OBJECTS + 1 + n) for n in range(2)]
+        await call("PUT", f"/{vbucket}")
+        await call("PUT", f"/{vbucket}", {"versioning": ""},
+                   b"<VersioningConfiguration><Status>Enabled</Status></VersioningConfiguration>")
+        vids = [(await put(f"/{vbucket}/doc", d))["x-amz-version-id"] for d in docs]
+        _, xml = await call("GET", f"/{vbucket}", {"versions": ""})
+        if (xml_texts(xml, "VersionId") != vids[::-1]
+                or xml_texts(xml, "Size") != [str(RGW_VERSION_BYTES)] * 2):
+            raise AssertionError(f"the versions listing {xml[:500]!r}, not {vids[::-1]}")
+        for query, data in (({}, docs[1]), ({"versionId": vids[0]}, docs[0])):
+            _, got = await call("GET", f"/{vbucket}/doc", query)
+            if got != data:
+                raise AssertionError(f"GET {vbucket}/doc {query}: other bytes")
+        out["vids"] = vids
+        for lane in lanes:
+            await lane.close()
+        return out
+
+    return asyncio.run(asyncio.wait_for(run(), 600))
+
+
+async def rgw_sequence(v, smi: str) -> dict:
+    """Phase 24 on phase 20's running cluster: the rgw process phase 23
+    spawned (RGW_EXTRAS: data in pool 1, the bucket index in pool 2) and
+    RGW_CLIENTS S3 client processes; B1 counted in the OSD processes over the
+    window. Returns the launches, the upload ids and version ids (for the
+    offline check) and the times."""
+    t0 = time.perf_counter()
+    port = await asyncio.to_thread(v.daemon_port, "rgw", 0, 120)
+    boot_s = time.perf_counter() - t0
+    rados = v.client("client.rgwadmin")
+    await rados.connect()
+    c = MPCluster(v, rados)
+    try:
+        before = await c.counts()
+        t = time.perf_counter()
+        res = await asyncio.to_thread(in_workers, "_rgw_client",
+                                      [(port, w) for w in range(RGW_CLIENTS)])
+        wall = time.perf_counter() - t
+        counts = window_counts("rgw", c.delta(before, await c.counts()))
+    finally:
+        await rados.shutdown()
+    n_parts = RGW_MULTIPART // RGW_PART
+    written = RGW_CLIENTS * (RGW_OBJECTS + n_parts + 1 + 2)
+    put_s, get_s = span_of(res, "put"), span_of(res, "get")
+    put_bytes = RGW_CLIENTS * RGW_OBJECTS * RGW_OBJECT
+    get_bytes = put_bytes + RGW_CLIENTS * RGW_MULTIPART
+    lat = np.array([s for r in res for s in r["put_seconds"]]) * 1e3
+    mp_s = max(r["multipart"][2] for r in res) - min(r["multipart"][0] for r in res)
+    complete_ms = np.array([r["multipart"][2] - r["multipart"][1] for r in res]) * 1e3
+    times = {"boot_s": boot_s, "put_gbps": put_bytes / put_s / 1e9, "put_s": put_s,
+             "put_p50_ms": float(np.percentile(lat, 50)),
+             "put_p99_ms": float(np.percentile(lat, 99)),
+             "multipart_gbps": RGW_CLIENTS * RGW_MULTIPART / mp_s / 1e9,
+             "complete_ms": float(complete_ms.mean()), "get_gbps": get_bytes / get_s / 1e9,
+             "get_s": get_s, "list_s": span_of(res, "list"), "window_s": wall}
+    print(f"  rgw.0 (python -m ceph_tpu_torch.rgw, spawned with phase 23's mds processes; data "
+          f"in pool {EC_POOL}, the bucket index in pool {REP_POOL}) serving S3 on :{port} "
+          f"({boot_s:.3f} s waited for it)", flush=True)
+    print(f"  [{smi}] {RGW_CLIENTS} S3 client processes, {RGW_IN_FLIGHT} requests in flight "
+          f"each: PUT of {RGW_CLIENTS * RGW_OBJECTS} objects of {RGW_OBJECT >> 20} MiB in "
+          f"{put_s:.3f} s, {times['put_gbps']:.4f} GB/s, a PUT p50 {times['put_p50_ms']:.3f} "
+          f"ms, p99 {times['put_p99_ms']:.3f} ms; {RGW_CLIENTS} multipart uploads of "
+          f"{RGW_MULTIPART >> 20} MiB in {n_parts} parts of {RGW_PART >> 20} MiB: "
+          f"{mp_s:.3f} s ({times['multipart_gbps']:.4f} GB/s), CompleteMultipartUpload "
+          f"{times['complete_ms']:.3f} ms (mean); every ETag the crc32c of its bytes",
+          flush=True)
+    print(f"  [{smi}] GET of every object and upload back ({get_bytes >> 20} MiB): "
+          f"{get_s:.3f} s, {times['get_gbps']:.4f} GB/s, every body and ETag exact; the "
+          f"listing in {res[0]['list'][2]} pages of {RGW_PAGE} keys a client, equal to what it "
+          f"wrote ({times['list_s']:.3f} s); a versioned key put twice, both versions listed "
+          f"and read back; the window {wall:.3f} s (the client processes' start included)",
+          flush=True)
+    print(f"  B1 wrapper launches in the OSD processes over the window: {counts[2]}, "
+          f"EncodeService objects {counts[1]}, against {written} objects the gateway wrote to "
+          f"pool {EC_POOL} (data, parts, manifests, versions); phase 24 took "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    return {"launches": counts[2], "times": times, "uploads": [r["upload"] for r in res],
+            "vids": [r["vids"] for r in res], "s": time.perf_counter() - t0}
 
 
 def _chaos_cpu(seed: int) -> tuple[str, float]:
@@ -5365,6 +5724,10 @@ def main() -> int:
     phase_native_and_tools(factory, smi)
 
     phase("phase 18: the live daemon path (monitors, OSD daemons, client) on the card")
+    # the offline check of phases 20-24 needs the CPU codec's parity of
+    # objects known from the seed: made in worker processes from here on
+    parity_pool = concurrent.futures.ThreadPoolExecutor(1)
+    parity = parity_pool.submit(offline_parity)
     bp.gf_matmul_bitplane.launches = 0
     daemon = phase_daemon_path(gc, factory, smi)
     daemon_b3 = bp.gf_matmul_bitplane.launches
@@ -5380,17 +5743,19 @@ def main() -> int:
     b8_times = phase_mesh_times(bp, sh, codec, smi)
 
     phase("phase 20: the multi-process cluster (VStart: a process per daemon) on the card")
-    mp = phase_multiprocess(factory, decompile_crushmap, smi)
+    mp = phase_multiprocess(factory, decompile_crushmap, smi, parity)
+    parity_pool.shutdown()
     print(f"  B1 launches in the OSD processes (their wrappers' counts): phase 20 "
           f"{mp['launches']}, phase 21 {mp['fleet']['launches']}, phase 22's mgr window "
-          f"{mp['mgr']['launches']}, phase 23 {mp['rbd']['launches_total']}", flush=True)
+          f"{mp['mgr']['launches']}, phase 23 {mp['rbd']['launches_total']}, phase 24 "
+          f"{mp['rgw']['launches']}", flush=True)
     phase_multiprocess_bench(smi)
 
     phase("phase 22 (cont.): the chaos harness, the recovery A/B and daemon_bench --mgr on "
           "the card")
     chaos = phase_chaos(gc, cc, factory, smi)
 
-    phase("phase 24: processes left")
+    phase("phase 25: processes left")
 
     kernels = [{
         "name": "gf_matmul_packed",
@@ -5398,7 +5763,8 @@ def main() -> int:
         "source": "ceph_tpu_torch/csrc/gf_matmul.cu",
         "replaces": "ceph_tpu/ops/gf_pallas.py:141",
         "launches": (launches + daemon["launches"] + mp["launches"] + mp["fleet"]["launches"]
-                     + mp["mgr"]["launches"] + mp["rbd"]["launches_total"] + chaos["b1"]),
+                     + mp["mgr"]["launches"] + mp["rbd"]["launches_total"]
+                     + mp["rgw"]["launches"] + chaos["b1"]),
         "max_abs_err": max_err,
         "ms": times["ms"],
         "held_ms": times["held_ms"],
@@ -5484,7 +5850,7 @@ def main() -> int:
     if left:
         raise AssertionError(f"processes still running: {left}")
     print("  none", flush=True)
-    phase("phase 25: kernels and the result")
+    phase("phase 26: kernels and the result")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

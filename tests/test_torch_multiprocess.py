@@ -19,6 +19,7 @@ the acting positions each package leaves without their shard.
 """
 
 import asyncio
+import json
 import os
 import signal
 import subprocess
@@ -181,8 +182,8 @@ def test_entry_points_need_a_device(tmp_path, monkeypatch):
         vstart.VStart(str(tmp_path / "x"))
     with pytest.raises(RuntimeError, match="cuda"):
         daemon_bench.run(["--multiprocess"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        vstart.VStart(str(tmp_path / "y"), device="cpu").start_daemon("rgw", 0)
+    with pytest.raises(ValueError, match="no daemon kind"):
+        vstart.VStart(str(tmp_path / "y"), device="cpu").start_daemon("rbd", 0)
 
     builds = []
     monkeypatch.setattr(cuda_build, "build", lambda *a: builds.append("cuda"))
@@ -190,31 +191,34 @@ def test_entry_points_need_a_device(tmp_path, monkeypatch):
     monkeypatch.setattr(vstart.VStart, "_spawn", lambda self, kind, ident: (kind, ident))
     v = vstart.VStart(str(tmp_path / "z"), n_mons=1, n_osds=2, device="cpu")
     v.start()
-    v.start_daemon("mgr", 0)
-    v.start_daemon("mds", 0)
-    assert v.extra == {("mgr", 0): ("mgr", 0), ("mds", 0): ("mds", 0)}
+    for kind in ("mgr", "mds", "rgw"):
+        v.start_daemon(kind, 0)
+    assert v.extra == {(k, 0): (k, 0) for k in ("mgr", "mds", "rgw")}
     assert builds == [] and v.spec.extras == {"device": "cpu"}
     assert vstart.ClusterSpec.load(v.spec_path).device == "cpu"
     assert vstart.VStart(str(tmp_path / "w"), device="cpu").client().objecter.device.type == "cpu"
 
 
 def test_mds_main_needs_a_device_and_rgw_stays_refused(tmp_path):
-    """`python -m ceph_tpu_torch.cephfs` is the mds daemon main: with no
-    device in the spec it opens cuda through init_device, as every kind
-    does, and exits non-zero without a card; the daemon main refuses the
-    rgw kind as not ported."""
+    """`python -m ceph_tpu_torch.cephfs` (the mds daemon main) and `python
+    -m ceph_tpu_torch.rgw` (the rgw daemon main): with no device in the
+    spec each opens cuda through init_device, as every kind does, and exits
+    non-zero without a card: neither falls back to the CPU. The daemon main
+    refuses a kind it does not know."""
     from ceph_tpu_torch import vstart
 
     spec = vstart.ClusterSpec(mon_addrs=[("127.0.0.1", 1)], n_osds=1, run_dir=str(tmp_path))
     spec.save(str(tmp_path / "spec.json"))
-    proc = subprocess.run(
-        [sys.executable, "-m", "ceph_tpu_torch.cephfs", "--id", "0", "--spec",
-         str(tmp_path / "spec.json")], cwd=REPO_ROOT, capture_output=True, text=True,
-        timeout=120, env={**os.environ, **CHILD_ENV})
-    assert proc.returncode != 0
-    assert "torch.cuda.is_available() is false" in proc.stderr
-    with pytest.raises(SystemExit, match="rgw.*not ported"):
-        vstart.daemon_main("rgw", 0, str(tmp_path / "spec.json"))
+    for module in ("ceph_tpu_torch.cephfs", "ceph_tpu_torch.rgw"):
+        proc = subprocess.run(
+            [sys.executable, "-m", module, "--id", "0", "--spec",
+             str(tmp_path / "spec.json")], cwd=REPO_ROOT, capture_output=True, text=True,
+            timeout=120, env={**os.environ, **CHILD_ENV})
+        assert proc.returncode != 0, module
+        assert "torch.cuda.is_available() is false" in proc.stderr, module
+        assert not (tmp_path / "rgw.0.port").exists()
+    with pytest.raises(SystemExit, match="unknown daemon kind 'rbd'"):
+        vstart.daemon_main("rbd", 0, str(tmp_path / "spec.json"))
 
 
 async def http_get(port: int, path: str) -> tuple[int, bytes]:
@@ -330,6 +334,79 @@ def test_vstart_mds_processes_fail_over(tmp_path):
     finally:
         rcs = v.stop(signal.SIGTERM)
     assert rcs == {"mon.0": 0, "mds.1": 0, **{f"osd.{i}": 0 for i in range(3)}}
+
+
+@pytest.mark.slow
+def test_vstart_full_stack_mds_rgw_mgr(tmp_path):
+    """Twin of tests/test_multiprocess.py::test_multiprocess_full_stack_mds_rgw_mgr:
+    mds, rgw and mgr processes spawned by VStart on one cluster on the CPU,
+    a client in this process driving all three: CephFS through the mds, S3
+    with SigV4 over HTTP through the rgw (data in the EC pool, the bucket
+    index in the replicated one), the dashboard through the mgr. Each service
+    is its own process, and SIGTERM stops every one with exit code 0."""
+    from ceph_tpu.common.crc import ceph_crc32c
+    from ceph_tpu_torch.cephfs import CephFSClient
+    from ceph_tpu_torch.vstart import VStart
+    from tests.test_s3_auth_ext import raw_http
+    from tests.test_s3_rest import MiniS3Client
+
+    v = VStart(str(tmp_path), n_mons=1, n_osds=5, device="cpu", env=CHILD_ENV)
+    v.spec.extras.update({"mds_data_pool": 1, "rgw_data_pool": EC_POOL, "rgw_index_pool": 1,
+                          "rgw_users": {"AKMP": "multiprocess-secret"}})
+    v.spec.save(v.spec_path)
+
+    async def main():
+        await asyncio.to_thread(v.wait_started, 120)
+        r = v.client()
+        await r.connect()
+        await v.wait_healthy(rados=r, timeout=120)
+        await r.mon_command("osd erasure-code-profile set", {"name": "k2m2", "profile": PROFILE})
+        await r.mon_command("osd pool create", {"pool_id": 1, "crush_rule": 1, "size": 3,
+                                                "pg_num": 8})
+        await r.mon_command("osd pool create", {"pool_id": EC_POOL, "crush_rule": 0,
+                                                "erasure_code_profile": "k2m2", "pg_num": 8})
+        for kind in ("mds", "rgw", "mgr"):
+            v.start_daemon(kind, 0)
+        loop = asyncio.get_running_loop()
+        end = loop.time() + 120
+        while (await r.mon_command("fs map"))["fsmap"].get("active") is None:
+            assert loop.time() < end, "no active mds"
+            await asyncio.sleep(0.5)
+        fs = CephFSClient(r, 1)
+        await fs.mount()
+        await fs.mkfs()
+        await fs.mkdir("/docs")
+        await fs.write_file("/docs/hello", b"multi-process fs")
+        assert await fs.read_file("/docs/hello") == b"multi-process fs"
+
+        c = MiniS3Client("127.0.0.1", await asyncio.to_thread(v.daemon_port, "rgw", 0, 120),
+                         "AKMP", "multiprocess-secret")
+        body = np.random.default_rng(24).bytes(100_000)
+        assert (await c.request("PUT", "/bucket"))[0] == 200
+        st, hd, _ = await c.request("PUT", "/bucket/obj", payload=body)
+        assert st == 200 and hd["etag"].strip('"') == f"{ceph_crc32c(0xFFFFFFFF, body):08x}"
+        st, _, got = await c.request("GET", "/bucket/obj")
+        assert st == 200 and got == body
+        assert (await c.request("GET", "/bucket/obj", tamper=True))[0] == 403
+        assert await r.io_ctx(EC_POOL).read("bucket/obj") == body
+        assert list(await r.io_ctx(1).omap_get(".bucket.index.bucket")) == [b"obj"]
+
+        st, _, doc = await raw_http("127.0.0.1",
+                                    await asyncio.to_thread(v.daemon_port, "mgr", 0, 120),
+                                    "GET", "/api/status")
+        assert st == 200
+        doc = json.loads(doc)
+        assert doc["cluster"]["num_osds"] == 5 and doc["mgrmap"]["active"] == "mgr.0"
+        assert len(v.extra) == 3 and all(p.poll() is None for p in v.extra.values())
+        await r.shutdown()
+
+    v.start()
+    try:
+        run(main(), 240)
+    finally:
+        rcs = v.stop(signal.SIGTERM)
+    assert rcs == {"mon.0": 0, "mds.0": 0, "rgw.0": 0, "mgr.0": 0,
+                   **{f"osd.{i}": 0 for i in range(5)}}
 
 
 @pytest.mark.slow
