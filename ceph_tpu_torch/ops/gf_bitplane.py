@@ -129,19 +129,15 @@ def gf_matmul_bitplane_plain(bitmat: torch.Tensor, data: torch.Tensor) -> torch.
 
 def gf_matmul_bitplane(
     bitmat: torch.Tensor, data: torch.Tensor, *, tables: torch.Tensor,
-    stream: torch.cuda.Stream | None = None,
 ) -> torch.Tensor:
     """Batched GF(2^8) matmul: (8r, 8k) bit-matrix x (B, k, L) bytes -> (B, r, L).
 
     A CPU `data` runs the plain version and ignores `tables`. A CUDA `data`
-    launches the kernel with `tables`, bitmat's (r, k, 32) uint8
-    `gf_cuda.kernel_tables` on the same device (the codecs'
-    `CodingTables.tables_t`); `data` may have any batch and row strides, its
-    last axis contiguous. The launch goes on `stream` (default: the current
-    stream); the output is allocated on the current stream, so a caller
-    that passes another stream orders it after the current one before the
-    call and joins it after. It raises on anything the kernel does not
-    take. Each launch adds one to `gf_matmul_bitplane.launches`.
+    launches the kernel on its device's current stream with `tables`,
+    bitmat's (r, k, 32) uint8 `gf_cuda.kernel_tables` on the same device
+    (the codecs' `CodingTables.tables_t`); `data` may have any batch and row
+    strides, its last axis contiguous. It raises on anything the kernel does
+    not take. Each launch adds one to `gf_matmul_bitplane.launches`.
     """
     r, k = _check_matmul(bitmat, data)
     if not data.is_cuda:
@@ -163,7 +159,7 @@ def gf_matmul_bitplane(
     lib = gc._lib()
     args = (tables.data_ptr(), host, data.data_ptr(), out.data_ptr(), k, r, batch, length,
             in_sb, in_sk)
-    err = gc.on_device(device, lib.gf_matmul_bytes_launch, *args, stream=stream)
+    err = gc.on_device(device, lib.gf_matmul_bytes_launch, *args)
     if err != 0:
         msg = lib.gf_cuda_error_string(err).decode()
         raise RuntimeError(f"gf_matmul_bitplane launch failed: CUDA error {err} ({msg})")

@@ -230,13 +230,24 @@ def device_tables(host: np.ndarray, device) -> torch.Tensor:
     return out
 
 
-def tables_to(tables: torch.Tensor, device) -> torch.Tensor:
+def tables_to(tables: torch.Tensor, device: torch.device) -> torch.Tensor:
     """`tables` on `device` (itself when it is there already), the host
-    bytes kept beside a copy as `device_tables` keeps them."""
-    out = tables.to(device)
-    host = getattr(tables, "_gf_host", None)
-    if out is not tables and host is not None and host[0] == tables._version:
-        out._gf_host = (out._version, host[1])
+    bytes kept beside a copy as `device_tables` keeps them. A copy is made
+    once per device and kept on `tables`, by device, until `tables` changes
+    in place."""
+    if tables.device == device:
+        return tables
+    memo = getattr(tables, "_gf_copies", None)
+    if memo is None or memo[0] != tables._version:
+        memo = (tables._version, {})
+        tables._gf_copies = memo
+    out = memo[1].get(device)
+    if out is None:
+        out = tables.to(device)
+        host = getattr(tables, "_gf_host", None)
+        if host is not None and host[0] == tables._version:
+            out._gf_host = (out._version, host[1])
+        memo[1][device] = out
     return out
 
 
@@ -284,16 +295,15 @@ def launch_plan(work: int) -> tuple[int, int]:
     return threads.value, blocks.value
 
 
-def on_device(device: int, fn, *args, stream: torch.cuda.Stream | None = None) -> int:
-    """fn(*args, stream handle): a launcher called with the raw handle of
-    `stream` (default: CUDA device `device`'s current stream), `device` made
-    current first only when it is not already (the host path of a launch at
-    one object's width is a fair part of its call)."""
+def on_device(device: int, fn, *args) -> int:
+    """fn(*args, stream handle): a launcher called with the raw handle of CUDA
+    device `device`'s current stream, `device` made current first only when
+    it is not already (the host path of a launch at one object's width is a
+    fair part of its call)."""
     if device != torch._C._cuda_getDevice():
         with torch.cuda.device(device):
-            return on_device(device, fn, *args, stream=stream)
-    handle = torch._C._cuda_getCurrentRawStream(device) if stream is None else stream.cuda_stream
-    return fn(*args, handle)
+            return on_device(device, fn, *args)
+    return fn(*args, torch._C._cuda_getCurrentRawStream(device))
 
 
 def _xor_lib() -> ctypes.CDLL:

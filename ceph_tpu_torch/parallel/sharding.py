@@ -11,8 +11,7 @@ every device: a numpy grid of `torch.device`s with named axes. It is not
 `torch.distributed`'s DeviceMesh/DTensor, which is SPMD (one process per
 device and an initialised process group); the reference's mesh is a single
 controller, and so is this one. A mesh may name one device more than once,
-the counterpart of the virtual CPU devices the JAX tests force: every slot on
-a card launches on its own `torch.cuda.Stream`.
+the counterpart of the virtual CPU devices the JAX tests force.
 
 A spec is a tuple of `None | axis name | tuple of axis names`, one entry per
 array axis (the counterpart of `PartitionSpec`). `MeshArray` is an array laid
@@ -22,12 +21,17 @@ tuple of the global array it holds.
 `_sharded_matmul` is the port of the reference's shard_map'd kernel (B8).
 That TPU function is a map of B3 over the slots, so its CUDA form is one
 launch of the hand-written B3 (`csrc/gf_matmul.cu`'s byte entry point,
-through `ops.gf_bitplane.gf_matmul_bitplane`) per slot, on the slot's device
-and stream, over a strided view of its block: B3 takes any batch and row
-strides with the last axis contiguous, so the stripe/byte split copies
-nothing on the card. There is no new CUDA source. On a CPU slot the same
-wrapper runs B3's plain version. Each card launch adds one to
-`gf_matmul_bitplane.launches`.
+through `ops.gf_bitplane.gf_matmul_bitplane`) per slot, on the current
+stream of the slot's device, over a strided view of its block: B3 takes any
+batch and row strides with the last axis contiguous, so the stripe/byte
+split copies nothing on the card. A mesh built from the visible cards
+(`ec_mesh`, `EncodeService`'s) has one slot a card, so a call is one launch
+a card, and launches on different cards run concurrently. B8 moves the same
+bytes as one B3 launch over the whole batch, and that launch's bound,
+(k + r) bytes a column at 3.35 TB/s, is B8's. The host adds only a lookup
+of the coding tables' copy on each other card (`gf_cuda.tables_to` keeps
+it). There is no new CUDA source. On a CPU slot the same wrapper runs B3's
+plain version. Each card launch adds one to `gf_matmul_bitplane.launches`.
 
 The slab math follows jax's ceil-div convention (the last slabs of an axis
 that the mesh does not divide run short or empty, as
@@ -66,7 +70,6 @@ class Mesh:
             raise ValueError(f"a mesh holds one kind of device, got {sorted(kinds)}")
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, grid.shape))
-        self._streams = None
 
     @property
     def size(self) -> int:
@@ -79,13 +82,6 @@ class Mesh:
     def slot_devices(self) -> list[torch.device]:
         """Each slot's device, in mesh (row-major) order."""
         return list(self.devices.flat)
-
-    def streams(self) -> list:
-        """One CUDA stream per slot (None for a CPU slot), made once."""
-        if self._streams is None:
-            self._streams = [torch.cuda.Stream(device=d) if d.type == "cuda" else None
-                             for d in self.devices.flat]
-        return self._streams
 
 
 def ec_mesh(n_devices: int | None = None, devices=None) -> Mesh:
@@ -219,28 +215,14 @@ def shard_batch(data, mesh: Mesh) -> MeshArray:
 def _sharded_matmul(mesh: Mesh, coding, data: MeshArray) -> MeshArray:
     """B8: every slot multiplies its (B/S, k, L/Bb) block by the replicated
     bit-matrix of `coding` (a codec's `CodingTables`) with one B3 launch on
-    its device and stream; no communication. The bit-matrix's kernel tables
-    are copied once to each other device the mesh names. Each slot stream
-    waits for its device's current stream (where the blocks and the outputs
-    were made) and the current stream waits for every slot stream after."""
+    its device's current stream; no communication. The kernel tables are
+    copied to each other device the mesh names once, and kept
+    (`gc.tables_to`)."""
     r8 = coding.bits_t.shape[0]
     batch, _k, length = data.shape
-    tables, ready, slots, joins = {}, {}, [], []
-    streams = mesh.streams()
-    for i, (idx, block) in enumerate(data.slots):
-        dev = block.device
-        if dev not in tables:
-            tables[dev] = gc.tables_to(coding.tables_t, dev)
-        stream = streams[i]
-        if dev.type == "cuda":
-            if dev not in ready:
-                ready[dev] = torch.cuda.current_stream(dev).record_event()
-            stream.wait_event(ready[dev])
-            joins.append((dev, stream))
-        out = bp.gf_matmul_bitplane(coding.bits_t, block, tables=tables[dev], stream=stream)
-        slots.append((idx, out))
-    for dev, stream in joins:
-        torch.cuda.current_stream(dev).wait_stream(stream)
+    slots = [(idx, bp.gf_matmul_bitplane(coding.bits_t, block,
+                                         tables=gc.tables_to(coding.tables_t, block.device)))
+             for idx, block in data.slots]
     return MeshArray((batch, r8 // 8, length), torch.uint8, DATA_SPEC, mesh, slots)
 
 

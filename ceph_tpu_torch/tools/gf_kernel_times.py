@@ -9,7 +9,11 @@ EncodeService launches it (an isa k=8 m=3 pool's 4 MiB object: 8 x 131,072
 words, the encode and a one-chunk decode), and at the burst width of 64 such
 objects (8 x 8,388,608 words); B3 (`ops.gf_bitplane.gf_matmul_bitplane`) at
 one object's width, as MiniCluster's puts launch it ((1, 8, 524,288) bytes),
-and at shec k=4 m=3's batch of 64 objects ((64, 4, 1 MiB)). Each is timed
+and at shec k=4 m=3's batch of 64 objects ((64, 4, 1 MiB)); B8
+(`parallel.sharding._sharded_matmul`) on chip_smoke.py phase 19's batch of
+64 objects' data chunks ((64, 8, 524,288) bytes) laid out on a 1x1 and a
+2x2 slot mesh of the card, beside one B3 launch over the same bytes. Each
+is timed
 three ways with chip_smoke.py's own functions: `ms`, the call time (CUDA
 events around back-to-back calls of the wrapper); `held_ms`, the device time
 (a spin kernel holds the stream while the calls are enqueued); `host_us`,
@@ -45,6 +49,7 @@ def measure(cs, reps: int) -> dict:
     from ceph_tpu_torch.ec.registry import factory
     from ceph_tpu_torch.ops import gf_bitplane as bp
     from ceph_tpu_torch.ops import gf_cuda as gc
+    from ceph_tpu_torch.parallel import sharding as sh
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
@@ -59,6 +64,9 @@ def measure(cs, reps: int) -> dict:
     burst = data(8, 4 * (8 << 20)).view(torch.int32)
     obj_bytes = data(1, 8, 524288)
     shec_batch = data(64, 4, 1 << 20)
+    mesh_batch = data(64, 8, 524288)
+    laid = {label: (mesh, sh.shard_batch(mesh_batch, mesh)) for label, mesh in (
+        ("1x1", sh.ec_mesh(devices=["cuda:0"])), ("2x2", sh.ec_mesh(devices=["cuda:0"] * 4)))}
     cases = {
         "B1 object width encode (8, 131072) -> (3, 131072) int32": (
             lambda: gc.gf_matmul_packed(enc.packed_t, obj, tables=enc.tables_t), 11 * 131072 * 4),
@@ -73,6 +81,13 @@ def measure(cs, reps: int) -> dict:
         "B3 shec k=4 m=3 encode (64, 4, 1 MiB) -> (64, 3, 1 MiB)": (
             lambda: bp.gf_matmul_bitplane(senc.bits_t, shec_batch, tables=senc.tables_t),
             64 * 7 << 20),
+        "B3 at B8's bytes (64, 8, 524288) -> (64, 3, 524288)": (
+            lambda: bp.gf_matmul_bitplane(enc.bits_t, mesh_batch, tables=enc.tables_t),
+            64 * 11 * 524288),
+        "B8 1x1 mesh (64, 8, 524288) -> (64, 3, 524288)": (
+            lambda: sh._sharded_matmul(laid["1x1"][0], enc, laid["1x1"][1]), 64 * 11 * 524288),
+        "B8 2x2 mesh (64, 8, 524288) -> (64, 3, 524288)": (
+            lambda: sh._sharded_matmul(laid["2x2"][0], enc, laid["2x2"][1]), 64 * 11 * 524288),
     }
     out = {}
     for name, (fn, moved) in cases.items():

@@ -193,11 +193,14 @@ through an rgw process. Phases:
       and read after: sharded_encode and sharded_decode (erasures {0,1,2})
       of 64 x (8, 512 KiB) and mesh_encode_planar / mesh_decode_planar on the
       burst's (8, 32 MiB) planes, on the 1x1 mesh and on the 2x2 mesh of four
-      slots on the card (a stream each), each output equal to one launch of
-      the byte-layout kernel over the whole batch and to its plain version;
-      EncodeService(mesh=2x2) on phase 4's burst, encode and decode through
-      the mesh path, its chunks equal phase 4's; times (CUDA events): B8's
-      call on each mesh beside one launch over the whole batch, the plain
+      slots on the card, each output equal to one launch of the byte-layout
+      kernel over the whole batch and to its plain version, each call one
+      launch a slot (one a card on a mesh of distinct cards), counted call
+      by call; EncodeService(mesh=2x2) on phase 4's burst, encode and
+      decode through the mesh path, its chunks equal phase 4's, its calls
+      counted the same way; after phase 20 (no daemon or worker process
+      left, the live child count printed), times (CUDA events): B8's call
+      on each mesh beside one launch over the whole batch, the plain
       version and the bytes bound;
   20. the multi-process cluster, B1 counted in each OSD process per window
       (`status`'s EncodeService launches and `perf dump`'s wrapper counts,
@@ -221,7 +224,7 @@ through an rgw process. Phases:
       reference README's hot-set configuration on the card;
   21. the training fleet and the dataset store on phase 20's cluster,
       before its SIGTERM, B1 counted in the OSD processes per window: the
-      dataset window (65,536 records of 1,024 uint16 GPT-2 tokens, 128 MiB
+      dataset window (32,768 records of 1,024 uint16 GPT-2 tokens, 64 MiB
       from the seed, ingested through DataStore into pool 1; `python -m
       ceph_tpu_torch.tools.data_tool ... verify` in its own process; one
       epoch read as 4 hosts at batch 12, with the prefetch pipeline (cut
@@ -261,10 +264,10 @@ through an rgw process. Phases:
   23. block images, their mirror and CephFS on phase 20's cluster, after
       phase 22's mgr window and before the SIGTERM, B1 counted in the OSD
       processes per window: 4 client processes on the card, each a thin
-      10 GiB image of order 22 (4 MiB objects) in pool 1 opened exclusive,
-      writing 256 MiB in 4 MiB writes, 4 in flight on disjoint objects
-      (`rbd bench --io-size 4M --io-total 1G --io-threads 16` over the
-      four), then a 4 KiB read-modify-write in each of its first 32
+      2 GiB image of order 22 (4 MiB objects) in pool 1 opened exclusive,
+      writing 128 MiB in 4 MiB writes, 4 in flight on disjoint objects
+      (`rbd bench --io-size 4M --io-total 512M --io-threads 16` over the
+      four), then a 4 KiB read-modify-write in each of its first 16
       objects; image 0's snapshot, 16 overwrites read at the snapshot and listed exactly
       by `diff`, a protected clone and a copy-up write into it; every
       image read back whole (its written span and a hole) and
@@ -274,7 +277,7 @@ through an rgw process. Phases:
       and a resize) replayed into pool 2 by `ImageReplayer.run_once`, the
       replica equal to the source and the journal trimmed; two mds
       processes (`python -m ceph_tpu_torch.cephfs`) serving CephFS on pool
-      2 (an EC pool has no omap for its directories), 16 directories of 4
+      2 (an EC pool has no omap for its directories), 8 directories of 4
       files of 64 KiB-4 MiB, the active SIGKILLed, the standby taking the
       rank and answering a resent request from its journal replay, every
       file equal; after the SIGTERM, every rbd_data head object's shards
@@ -287,7 +290,7 @@ through an rgw process. Phases:
       pool 2, whose omap an EC pool cannot hold); 4 client processes, each with its own SigV4
       client written from the AWS specification and 5 requests in flight
       (MinIO warp's `put` defaults: 10 MiB objects, 20 concurrent), create
-      a bucket, PUT 16 objects of 10 MiB, upload 64 MiB in 8 MiB parts
+      a bucket, PUT 8 objects of 10 MiB, upload 64 MiB in 8 MiB parts
       (the AWS CLI's multipart defaults) and complete it, GET everything
       back (bytes and ETag, the crc32c, exact), page through the bucket's
       listing 5 keys at a time, and put one key twice in a versioned bucket
@@ -3403,7 +3406,7 @@ def phase_daemon_path(gc, factory, smi: str) -> dict:
 #: phase 19: the north-star batch, 64 objects' (8, 512 KiB) data chunks
 MESH_BATCH = (OBJECTS, K, OBJECT_BYTES // K)
 #: (name, slot devices) of the meshes B8 runs on: the card alone, and four
-#: slots on it, each launching on its own stream
+#: slots on it, each a launch on the card's current stream
 MESHES = (("1x1", ["cuda:0"]), ("2x2", ["cuda:0"] * 4))
 B8_LAUNCHES = 20
 
@@ -3416,11 +3419,37 @@ def b8_check(name: str, got: torch.Tensor, one: torch.Tensor, plain: torch.Tenso
     return err
 
 
-def phase_mesh_main(bp, sh, codec, es, objs, encoded) -> tuple[int, int]:
+@contextlib.contextmanager
+def b8_counted(bp, sh, per_call: dict):
+    """`sh._sharded_matmul` with each call's B3 launches appended under its
+    mesh's label in `per_call`: a call fails unless it made one launch a
+    slot with bytes."""
+    inner = sh._sharded_matmul
+    labels = {len(devices): label for label, devices in MESHES}
+
+    def counted(mesh, coding, data):
+        before = bp.gf_matmul_bitplane.launches
+        out = inner(mesh, coding, data)
+        made = bp.gf_matmul_bitplane.launches - before
+        per_call.setdefault(labels[mesh.size], []).append(made)
+        if made != sum(block.numel() > 0 for _idx, block in data.slots):
+            raise AssertionError(f"B8 on {mesh.size} slots made {made} B3 launches")
+        return out
+
+    sh._sharded_matmul = counted
+    try:
+        yield
+    finally:
+        sh._sharded_matmul = inner
+
+
+def phase_mesh_main(bp, sh, codec, es, objs, encoded) -> tuple[int, int, dict]:
     """Phase 19, the counted part: B8 through its entry points on both
     meshes (sharded_encode/decode at the north-star batch, the planar entry
     points on the burst's (8, 32 MiB) planes) and EncodeService(mesh=2x2) on
-    phase 4's burst. Returns B3's launches here and the max error."""
+    phase 4's burst, each `_sharded_matmul` call's B3 launches counted on
+    their own: one a non-empty slot. Returns B3's launches here, the max
+    error and each mesh's launches a call."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
     data = random_bytes(MESH_BATCH, gen)
     enc = codec._encode
@@ -3441,20 +3470,22 @@ def phase_mesh_main(bp, sh, codec, es, objs, encoded) -> tuple[int, int]:
             bp.gf_matmul_bitplane_plain(dec.bits_t, planar_survivors[None])[0]),
     }
     torch.cuda.synchronize()
-    errs = []
+    errs, per_call = [], {}
     bp.gf_matmul_bitplane.launches = 0
-    for label, devices in MESHES:
-        mesh = sh.ec_mesh(devices=devices)
-        got = {
-            "encode": sh.sharded_encode(codec, sh.shard_batch(data, mesh), mesh).full("cuda"),
-            "decode": sh.sharded_decode(codec, present, list(ERASED),
-                                        sh.shard_batch(survivors, mesh), mesh).full("cuda"),
-            "planar encode": sh.mesh_encode_planar(codec, planes, mesh),
-            "planar decode": sh.mesh_decode_planar(codec, present, list(ERASED),
-                                                   planar_survivors, mesh),
-        }
-        for kind, out in got.items():
-            errs.append(b8_check(f"B8 {kind} on the {label} mesh", out, *want[kind]))
+    with b8_counted(bp, sh, per_call):
+        for label, devices in MESHES:
+            mesh = sh.ec_mesh(devices=devices)
+            got = {
+                "encode": sh.sharded_encode(codec, sh.shard_batch(data, mesh), mesh).full("cuda"),
+                "decode": sh.sharded_decode(codec, present, list(ERASED),
+                                            sh.shard_batch(survivors, mesh), mesh).full("cuda"),
+                "planar encode": sh.mesh_encode_planar(codec, planes, mesh),
+                "planar decode": sh.mesh_decode_planar(codec, present, list(ERASED),
+                                                       planar_survivors, mesh),
+            }
+            for kind, out in got.items():
+                errs.append(b8_check(f"B8 {kind} on the {label} mesh", out, *want[kind]))
+    calls_before = len(per_call["2x2"])
     mesh = sh.ec_mesh(devices=MESHES[1][1])
     svc = es.EncodeService(mesh=mesh)
 
@@ -3467,7 +3498,8 @@ def phase_mesh_main(bp, sh, codec, es, objs, encoded) -> tuple[int, int]:
         rebuilt = await asyncio.gather(*(svc.decode(codec, set(ERASED), s) for s in survivors))
         return chunks, rebuilt, after, enc_s, time.perf_counter() - t
 
-    chunks, rebuilt, enc_launches, enc_s, dec_s = asyncio.run(burst())
+    with b8_counted(bp, sh, per_call):
+        chunks, rebuilt, enc_launches, enc_s, dec_s = asyncio.run(burst())
     torch.cuda.synchronize()
     launches = bp.gf_matmul_bitplane.launches
     dec_launches = svc.mesh_launches - enc_launches
@@ -3481,13 +3513,40 @@ def phase_mesh_main(bp, sh, codec, es, objs, encoded) -> tuple[int, int]:
         raise AssertionError("EncodeService(mesh=) did not take the mesh path both ways")
     if chunks != encoded or any(r != {i: e[i] for i in ERASED} for r, e in zip(rebuilt, encoded)):
         raise AssertionError("EncodeService(mesh=) chunks differ from phase 4's")
-    return launches, max(errs)
+    if len(per_call["2x2"]) - calls_before != svc.mesh_launches:
+        raise AssertionError("EncodeService's mesh calls and B8's calls disagree")
+    print(f"  B3 launches a B8 call, call by call: {per_call} (1x1: the four entry points; "
+          f"2x2: the four, then EncodeService's {svc.mesh_launches} mesh calls); one a slot, "
+          f"so one a card on a mesh of distinct cards", flush=True)
+    return launches, max(errs), {label: sorted(set(n)) for label, n in per_call.items()}
+
+
+def live_children() -> int | None:
+    """Child processes of this one alive now (zombies not yet reaped
+    included), from /proc/self/task/*/children; None where the kernel has
+    no such file."""
+    pids, found = set(), False
+    for task in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{task}/children") as f:
+                pids.update(f.read().split())
+            found = True
+        except OSError:
+            continue
+    return len(pids) if found else None
 
 
 def phase_mesh_times(bp, sh, codec, smi: str) -> dict:
-    """Phase 19, the times: B8's call on each mesh (the inputs already laid
-    out, as the entry points hand them on) beside one B3 launch at the same
-    bytes, the plain version and the bytes bound."""
+    """Phase 19, the times (taken after phase 20, when no worker or daemon
+    process of the smoke runs beside them): B8's call on each mesh (the
+    inputs already laid out, as the entry points hand them on) beside one B3
+    launch at the same bytes, the plain version and the bytes bound, with
+    B3's launches a call."""
+    alive = live_children()
+    print(f"  child processes of the smoke alive now (/proc/self/task/*/children): "
+          f"{'not readable' if alive is None else alive}", flush=True)
+    if alive:
+        raise AssertionError(f"{alive} child processes run beside B8's times")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
     data = random_bytes(MESH_BATCH, gen)
     enc = codec._encode
@@ -3503,10 +3562,21 @@ def phase_mesh_times(bp, sh, codec, smi: str) -> dict:
     for label, devices in MESHES:
         mesh = sh.ec_mesh(devices=devices)
         laid = sh.shard_batch(data, mesh)
-        out[label] = kernel_times(lambda: sh._sharded_matmul(mesh, enc, laid), B8_LAUNCHES)
-        print(f"  [{smi}] B8 on the {label} mesh ({mesh.size} B3 launches a call): "
-              f"{times_text(out[label])}, share {bound_ms / out[label]['ms']:.3f}, against "
-              f"one B3 launch {out[label]['ms'] / one['ms']:.3f}x", flush=True)
+        calls = []
+
+        def call():
+            calls.append(1)
+            return sh._sharded_matmul(mesh, enc, laid)
+
+        before = bp.gf_matmul_bitplane.launches
+        out[label] = kernel_times(call, B8_LAUNCHES)
+        out[label]["launches_per_call"] = (bp.gf_matmul_bitplane.launches - before) / len(calls)
+        print(f"  [{smi}] B8 on the {label} mesh ({mesh.size} slots on the card, "
+              f"{out[label]['launches_per_call']:g} B3 launches a call): "
+              f"{times_text(out[label])}, share {bound_ms / out[label]['ms']:.3f} "
+              f"(device {bound_ms / out[label]['held_ms']:.3f}), against one B3 launch "
+              f"{out[label]['ms'] / one['ms']:.3f}x (device "
+              f"{out[label]['held_ms'] / one['held_ms']:.3f}x)", flush=True)
     return {**out["2x2"], "plain_ms": plain_ms, "bound_ms": bound_ms, "one_b3": one,
             "meshes": out}
 
@@ -4014,8 +4084,9 @@ def phase_multiprocess_bench(smi: str) -> None:
 # -- phase 21: the training fleet and the dataset store ------------------------------
 
 #: the dataset: GPT-2-tokenised text as nanoGPT stores it (uint16 tokens, which
-#: GPT-2's vocabulary fits), 65,536 records of 1,024 tokens: 128 MiB
-DS_RECORDS, DS_TOKENS = 65_536, 1024
+#: GPT-2's vocabulary fits), 32,768 records of 1,024 tokens: 64 MiB (from
+#: 128 MiB, a cut for the 1200 s limit: ingest and data_tool verify halve)
+DS_RECORDS, DS_TOKENS = 32_768, 1024
 DS_NAME = "owt-tokens"
 #: hosts of the fleet and of the dataset's epoch, at nanoGPT's batch size
 FLEET_HOSTS = 4
@@ -4024,7 +4095,7 @@ DS_BATCH = 12
 #: cut: on the card 4 hosts read 318-363 records/s without prefetch, so a
 #: whole epoch would take over 3 minutes
 DS_NOPREFETCH_BATCHES = 16
-#: the pass with it reads this many batches a host (of the epoch's 1,366), a
+#: the pass with it reads this many batches a host (of the epoch's 683), a
 #: cut: the whole epoch took 96 s on the card and 256 batches 18 s, and the
 #: smoke's later phases need the time
 DS_PREFETCH_BATCHES = 64
@@ -4605,15 +4676,18 @@ async def mgr_sequence(v, smi: str) -> dict:
 
 #: one thin image a client process, `rbd create --size 10G` at rbd's default
 #: order 22 (4 MiB objects), in pool 1 (isa k=8 m=3)
-RBD_IMAGE_BYTES = 10 << 30
+#: a thin 2 GiB image (from 10 GiB, a cut for the 1200 s limit: the first
+#: write's object-map sweep and object_map_check stat every object)
+RBD_IMAGE_BYTES = 2 << 30
 RBD_ORDER = 22
 RBD_OBJECT = 1 << RBD_ORDER
-#: `rbd bench --io-type write --io-size 4M --io-total 1G --io-threads 16` over
-#: the four images: 256 MiB an image in 4 MiB writes, 4 in flight on each on
-#: disjoint objects (after a first write alone: ROADMAP §C)
-RBD_SPAN = 256 << 20
+#: `rbd bench --io-type write --io-size 4M --io-total 512M --io-threads 16`
+#: over the four images: 128 MiB an image in 4 MiB writes, 4 in flight on
+#: each on disjoint objects (after a first write alone: ROADMAP §C); from
+#: --io-total 1G, a cut for the 1200 s limit
+RBD_SPAN = 128 << 20
 RBD_IN_FLIGHT = 4
-#: 4 KiB writes at seeded offsets, one in each of an image's first 32 data
+#: 4 KiB writes at seeded offsets, one in each of an image's first 16 data
 #: objects (half of them: a cut for the 1200 s limit): each a
 #: read-modify-write of its 4 MiB object
 RBD_SMALL = 4096
@@ -4626,9 +4700,10 @@ RBD_CLONE_OFF = 5 * RBD_OBJECT + 12345
 #: writes of 4 KiB-4 MiB, the size it is cut to
 MIRROR_BYTES, MIRROR_WRITES, MIRROR_RESIZE = 64 << 20, 16, 48 << 20
 #: CephFS on pool 2 (directories are omap objects: an EC pool refuses them,
-#: in both packages): directories, files in each, two mds processes;
-#: directories filled (and files read back) at a time
-FS_DIRS, FS_FILES, FS_MDS, FS_IN_FLIGHT = 16, 4, 2, 4
+#: in both packages): directories (8, from 16: a cut for the 1200 s
+#: limit), files in each, two mds processes; directories filled (and files
+#: read back) at a time
+FS_DIRS, FS_FILES, FS_MDS, FS_IN_FLIGHT = 8, 4, 2, 4
 
 
 def rbd_patches(worker: int) -> list[tuple[int, bytes]]:
@@ -5112,11 +5187,11 @@ async def rbd_sequence(v, smi: str) -> dict:
 
 #: MinIO warp's `put` defaults (--obj.size 10MiB --concurrent 20): 4 client
 #: processes of 5 requests in flight; a count of objects a client instead of
-#: warp's 5-minute duration
+#: warp's 5-minute duration (8 a client, from 16: a cut for the 1200 s limit)
 RGW_CLIENTS = 4
 RGW_IN_FLIGHT = 5
 RGW_OBJECT = 10 << 20
-RGW_OBJECTS = 16
+RGW_OBJECTS = 8
 #: one multipart upload a client, in the AWS CLI's default 8 MiB parts (its
 #: multipart_threshold and multipart_chunksize)
 RGW_MULTIPART = 64 << 20
@@ -5734,13 +5809,12 @@ def main() -> int:
     print(f"  gf_matmul_bitplane launches on the daemon path: {daemon_b3}", flush=True)
 
     phase("phase 19: the device mesh (B8) on the card")
-    b8_launches, b8_err = phase_mesh_main(bp, sh, codec, es, objs, encoded)
+    b8_launches, b8_err, b8_per_call = phase_mesh_main(bp, sh, codec, es, objs, encoded)
     print(f"  gf_matmul_bitplane launches on the mesh path (one per slot): {b8_launches}",
           flush=True)
     if b8_launches < 1:
         raise AssertionError("the mesh path never launched B3 on a slot")
     del objs, encoded
-    b8_times = phase_mesh_times(bp, sh, codec, smi)
 
     phase("phase 20: the multi-process cluster (VStart: a process per daemon) on the card")
     mp = phase_multiprocess(factory, decompile_crushmap, smi, parity)
@@ -5749,6 +5823,9 @@ def main() -> int:
           f"{mp['launches']}, phase 21 {mp['fleet']['launches']}, phase 22's mgr window "
           f"{mp['mgr']['launches']}, phase 23 {mp['rbd']['launches_total']}, phase 24 "
           f"{mp['rgw']['launches']}", flush=True)
+
+    phase("phase 19 (cont.): B8's times, the daemons and the parity workers gone")
+    b8_times = phase_mesh_times(bp, sh, codec, smi)
     phase_multiprocess_bench(smi)
 
     phase("phase 22 (cont.): the chaos harness, the recovery A/B and daemon_bench --mgr on "
@@ -5837,6 +5914,7 @@ def main() -> int:
         "source": "ceph_tpu_torch/csrc/gf_matmul.cu",
         "replaces": "ceph_tpu/parallel/sharding.py:50",
         "launches": b8_launches,
+        "launches_per_call": b8_per_call,
         "max_abs_err": b8_err,
         "ms": b8_times["ms"],
         "held_ms": b8_times["held_ms"],
@@ -5845,6 +5923,10 @@ def main() -> int:
         "bound_ms": b8_times["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "meshes": {label: {key: t[key] for key in ("ms", "held_ms", "host_us",
+                                                   "launches_per_call")}
+                   for label, t in b8_times["meshes"].items()},
+        "one_b3": b8_times["one_b3"],
     })
     left = own_children()
     if left:

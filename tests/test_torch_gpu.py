@@ -151,9 +151,10 @@ def test_live_k2m2_round_trip_on_card():
 
 @pytest.mark.gpu
 def test_sharded_matmul_on_a_slot_mesh_matches_one_launch():
-    """B8 on a 2x2 mesh of four slots on one card (a stream each): every
-    slot's B3 launch over its strided block, gathered, equals one B3 launch
-    over the whole batch, for an encode and a decode matrix."""
+    """B8 on a 2x2 mesh of four slots on one card: every slot's B3 launch
+    over its strided block, on the card's current stream, gathered, equals
+    one B3 launch over the whole batch, for an encode and a decode
+    matrix."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run with -m gpu on one)")
     from ceph_tpu_torch.ec.registry import factory
@@ -173,6 +174,43 @@ def test_sharded_matmul_on_a_slot_mesh_matches_one_launch():
     survivors = torch.cat([data, got], dim=1)[:, 3:, :]
     rebuilt = sh.sharded_decode(codec, present, targets, sh.shard_batch(survivors, mesh), mesh)
     assert torch.equal(rebuilt.full("cuda"), data[:, :3, :])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slots", [4, 8])
+@pytest.mark.parametrize("case", ["even", "ragged", "survivors"])
+def test_sharded_matmul_slots_match_one_launch_and_plain_on_card(slots, case):
+    """B8 on a 2x2 and a 4x2 mesh of cuda:0: every slot's output equals a
+    B3 launch over its block and the plain version, and the gathered result
+    one B3 launch over the whole batch, bit for bit, with one launch a
+    non-empty slot a call: whole 16-byte groups, a ragged (7, 8, 65,549)
+    batch, and the decode's strided survivors."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on one)")
+    from ceph_tpu_torch.ec.registry import factory
+    from ceph_tpu_torch.ops import gf_bitplane as bp
+    from ceph_tpu_torch.parallel import sharding as sh
+
+    codec = factory("isa", {"k": "8", "m": "3", "technique": "cauchy"})
+    mesh = sh.ec_mesh(devices=["cuda:0"] * slots)
+    gen = torch.Generator(device="cuda").manual_seed(slots)
+    shape = {"even": (8, 8, 1 << 16), "ragged": (7, 8, 65549), "survivors": (7, 11, 65549)}[case]
+    data = torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda", generator=gen)
+    coding = (codec.decode_bitmatrix(list(range(3, 11)), [0, 1, 2]) if case == "survivors"
+              else codec._encode)
+    laid = sh.shard_batch(data, mesh)
+    first_k = sh.MeshArray((shape[0], 8, shape[2]), torch.uint8, sh.DATA_SPEC, mesh,
+                           [(idx, block[:, :8, :]) for idx, block in laid.slots])
+    before = bp.gf_matmul_bitplane.launches
+    got = sh._sharded_matmul(mesh, coding, first_k)
+    assert bp.gf_matmul_bitplane.launches == before + sum(
+        block.numel() > 0 for _idx, block in first_k.slots)
+    for (_idx, block), (_i, out) in zip(first_k.slots, got.slots):
+        assert torch.equal(out, bp.gf_matmul_bitplane(coding.bits_t, block,
+                                                      tables=coding.tables_t))
+        assert torch.equal(out, bp.gf_matmul_bitplane_plain(coding.bits_t, block))
+    whole = bp.gf_matmul_bitplane(coding.bits_t, data[:, :8, :], tables=coding.tables_t)
+    assert torch.equal(got.full("cuda"), whole)
 
 
 @pytest.mark.gpu

@@ -20,6 +20,8 @@ from ceph_tpu.ec.registry import factory as ref_factory
 from ceph_tpu.osd.encode_service import EncodeService as RefEncodeService
 from ceph_tpu.parallel import sharding as ref_sh
 from ceph_tpu_torch.ec.registry import factory
+from ceph_tpu_torch.ops import gf_bitplane as bp
+from ceph_tpu_torch.ops import gf_cuda as gc
 from ceph_tpu_torch.osd.encode_service import EncodeService
 from ceph_tpu_torch.parallel import sharding as sh
 
@@ -189,3 +191,69 @@ def test_encode_service_mesh_path_matches_ceph_tpu(slots):
     assert got[:2] == want[:2]
     assert want[2] >= 1 and want[3] >= 1
     assert (got[2] >= 1 and got[3] >= 1) if slots else got[2:] == (0, 0)
+
+
+# -- B8 itself: one B3 launch a slot, on the slot device's current stream ------
+
+#: (batch, rows of the input, length): whole slabs; ragged ones (a short
+#: last slab on both axes, an empty stripe slab on the 4x2 mesh); the
+#: decode's strided [:, :8, :] view of 11 rows, ragged
+MATMUL_CASES = {"even": (8, 8, 128), "ragged": (3, 8, 65), "survivors": (7, 11, 65)}
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2), (4, 2)])
+@pytest.mark.parametrize("case", sorted(MATMUL_CASES))
+def test_sharded_matmul_matches_ceph_tpu(shape, case):
+    """`_sharded_matmul` over a repeated CPU mesh against ceph_tpu on the same
+    numpy input, bit-exact: its `_sharded_matmul` on a JAX mesh of the same
+    shape where the mesh divides the batch, its one-device matmul where the
+    slabs run ragged. Every slot keeps its index, its output is a (B/S, 3,
+    L/Bb) block, and a CPU mesh counts no launch."""
+    batch, rows, length = MATMUL_CASES[case]
+    ref, port = codecs(*ISA)
+    rng = np.random.default_rng(batch * length + int(np.prod(shape)))
+    inp = rng.integers(0, 256, (batch, rows, length), np.uint8)
+    if case == "survivors":
+        present = list(range(3, 11))
+        ref_bits, coding = (ref.decode_bitmatrix(present, [0, 1, 2])[0],
+                            port.decode_bitmatrix(present, [0, 1, 2]))
+    else:
+        ref_bits, coding = ref._encode_bits, port._encode
+    ref_mesh, mesh = _mesh_pair(shape)
+    if case == "even":
+        want = np.asarray(ref_sh._sharded_matmul(ref_mesh)(
+            ref_bits, ref_sh.shard_batch(inp, ref_mesh)))
+    else:
+        want = np.asarray(ref_sh._sharded_matmul(_mesh_pair((1, 1))[0])(
+            ref_bits, inp[:, :8, :]))
+    laid = sh.shard_batch(torch.from_numpy(inp), mesh)
+    first_k = sh.MeshArray((batch, 8, length), torch.uint8, sh.DATA_SPEC, mesh,
+                           [(idx, block[:, :8, :]) for idx, block in laid.slots])
+    before = bp.gf_matmul_bitplane.launches
+    got = sh._sharded_matmul(mesh, coding, first_k)
+    assert bp.gf_matmul_bitplane.launches == before
+    assert got.shape == (batch, 3, length) and got.spec == sh.DATA_SPEC
+    assert [idx for idx, _out in got.slots] == [idx for idx, _block in laid.slots]
+    for idx, out in got.slots:
+        assert np.array_equal(out.numpy(), want[idx])
+    assert np.array_equal(got.full("cpu").numpy(), want)
+
+
+def test_tables_to_keeps_one_copy_per_device_until_the_tables_change():
+    """`gf_cuda.tables_to`: the tables themselves on their own device; one
+    copy per other device, made once and kept with the host bytes beside
+    it; a new copy after the tables change in place. (The `meta` device
+    stands in for another card.)"""
+    _ref, port = codecs(*ISA)
+    tables = port._encode.tables_t.clone()
+    tables._gf_host = (tables._version, np.zeros(4, np.uint8))
+    assert gc.tables_to(tables, torch.device("cpu")) is tables
+    meta = torch.device("meta")
+    copy = gc.tables_to(tables, meta)
+    assert copy.device == meta and copy.shape == tables.shape
+    assert copy._gf_host[1] is tables._gf_host[1]
+    assert gc.tables_to(tables, meta) is copy
+    tables.add_(0)
+    again = gc.tables_to(tables, meta)
+    assert again is not copy and not hasattr(again, "_gf_host")
+    assert gc.tables_to(tables, meta) is again
