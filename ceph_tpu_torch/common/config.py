@@ -578,13 +578,15 @@ SCHEMA: dict[str, Option] = {
              "estimate (PGs moved x this = data moved per epoch)",
              min=1),
         # bench / profiling
-        # cephlint: disable=knob-registry (kept so the schema equals the reference's; read by the profile hook that comes with the port's bench, not written yet)
         _opt("bench_profile_trace_dir", TYPE_STR, LEVEL_DEV, "",
-             "write jax.profiler traces here when set",
+             "directory the ec_bench tool writes its torch.profiler "
+             "Chrome trace to (default: ceph_tpu_torch_trace in the "
+             "temporary directory)",
              see_also=("bench_profile",)),
-        # cephlint: disable=knob-registry (as bench_profile_trace_dir above)
         _opt("bench_profile", TYPE_BOOL, LEVEL_DEV, False,
-             "capture a jax.profiler trace around benchmark loops"),
+             "record the codec call's hot-path spans (common/tracer.py "
+             "hot_spans), and run the ec_bench tool's loop under "
+             "torch.profiler with them on"),
         # dout subsystem levels (src/common/subsys.h-style "1/5" defaults:
         # emitted at the configured level, ring-gathered up to 5; see
         # ceph_tpu.common.log)

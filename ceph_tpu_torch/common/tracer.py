@@ -55,6 +55,13 @@ The task-local current context (`use`/`use_wire`) rides a contextvar so
 awaits and `create_task` propagate it without plumbing; `child()`
 returns None when no sampled context is active — interior span sites
 never start traces of their own.
+
+Hot path: a `Span` costs several microseconds, too much inside one codec
+call of 20-50 us. `hot_spans`, a `HotSpanRecorder`, records the codec
+call's layer boundaries (its entries, the decode-table lookup, the kernel
+wrappers' host path and the launch) as bare (name, parent, start_ns,
+end_ns) tuples on `time.perf_counter_ns()`, behind the same cached-flag
+gate, switched by the `bench_profile` knob.
 """
 
 from __future__ import annotations
@@ -750,3 +757,97 @@ class Tracer:
 #: export path env override helper for tools; kept trivial on purpose
 def default_tracer(service: str) -> Tracer:
     return Tracer(service)
+
+
+#: records `hot_spans` keeps: a 2 s run of one-object codec calls (30-50 us
+#: a call, 3-4 spans each) leaves about 250,000
+HOT_RING_SIZE = 1 << 19
+
+
+class HotSpanRecorder:
+    """A bounded ring of (name, parent, start_ns, end_ns) records, stamped
+    with `time.perf_counter_ns()`, for span sites on a path too hot for a
+    `Span`.
+
+    The `bench_profile` knob switches it, observed into the cached flag
+    `on` (the dout-gate idiom): a span site reads the flag and, while it
+    is off, does nothing more and allocates nothing:
+
+        if hot_spans.on:
+            return hot_spans.call("ec.encode_words", self._encode_words, words)
+        return self._encode_words(words)
+
+    On, a span is one tuple appended to a deque: no ids, no dicts, no
+    histogram. `parent` is the name of the span that was open when it
+    began (None at the top), kept in one slot, so it is right for spans
+    opened on one thread at a time. A span whose call raises is recorded
+    too. What the records mean (self times, their place on a device
+    trace's clock) is left to whoever drains them."""
+
+    __slots__ = ("on", "_ring", "_open")
+
+    def __init__(self, config: Config | None = None,
+                 size: int = HOT_RING_SIZE):
+        cfg = config if config is not None else global_config
+        self.on = bool(cfg.get("bench_profile"))
+        self._ring: deque[tuple] = deque(maxlen=max(1, size))
+        self._open: str | None = None
+        cfg.observe("bench_profile", self._on_profile)
+
+    def _on_profile(self, _n, v) -> None:
+        self.on = bool(v)
+
+    def call(self, name: str, fn, *args):
+        """fn(*args) inside the span `name`."""
+        parent = self._open
+        self._open = name
+        start = time.perf_counter_ns()
+        try:
+            return fn(*args)
+        finally:
+            self._ring.append((name, parent, start, time.perf_counter_ns()))
+            self._open = parent
+
+    def drain(self) -> list[tuple]:
+        """The records, oldest first (a span after its children), and an
+        empty ring."""
+        out = list(self._ring)
+        self._ring.clear()
+        return out
+
+    @staticmethod
+    def dump(records: list[tuple]) -> list[dict]:
+        """Records as `Span.dump()` dicts of the service "ec_codec", which
+        `trace_tool` renders: starts on the wall clock (mapped from
+        `perf_counter_ns` through one pair of readings taken now), each
+        top-level span a trace of its own, a span's parent the span that
+        encloses it."""
+        offset = time.time_ns() - time.perf_counter_ns()
+        out: list[dict] = []
+        stack: list[tuple[str, str, int]] = []  # (span_id, trace_id, end)
+        ordered = sorted(records, key=lambda r: (r[2], -r[3]))
+        for i, (name, _parent, start, end) in enumerate(ordered, 1):
+            while stack and stack[-1][2] < end:
+                stack.pop()
+            span_id = f"{i:016x}"
+            parent_id, trace_id = (stack[-1][0], stack[-1][1]) if stack \
+                else (None, span_id)
+            stack.append((span_id, trace_id, end))
+            out.append({
+                "trace_id": trace_id,
+                "span_id": span_id,
+                "parent_id": parent_id,
+                "name": name,
+                "service": "ec_codec",
+                "start": (start + offset) / 1e9,
+                "duration": (end - start) / 1e9,
+                "tags": {},
+                "events": [],
+            })
+        return out
+
+
+#: the process's hot-path recorder: the codec and the kernel wrappers that
+#: record into it are module functions that no caller hands a recorder to,
+#: as the `.launches` counts beside them are function attributes
+hot_spans = HotSpanRecorder()

@@ -35,6 +35,8 @@ from typing import Callable, Iterable, Mapping, Sequence
 import numpy as np
 import torch
 
+from ceph_tpu_torch.common.perf_counters import PerfCounters
+
 SIMD_ALIGN = 32  # reference: ErasureCode.cc:42 (bufferlist alignment for SIMD)
 
 ErasureCodeProfile = dict  # str -> str, as in ErasureCodeInterface.h:155
@@ -88,6 +90,13 @@ class DecodeTableCache:
     #: reference LRU is sized for <=(12,4) patterns
     DEFAULT_CAPACITY = 256
 
+    #: lookups that found their tables, lookups that built them, and
+    #: entries dropped at capacity, over every cache of the process: one
+    #: add a lookup, read by the `ec_codec` perf block (`CodecCounters`)
+    hits = 0
+    misses = 0
+    evictions = 0
+
     def __init__(self, capacity: int = DEFAULT_CAPACITY):
         self._entries: OrderedDict = OrderedDict()
         self._capacity = capacity
@@ -95,15 +104,60 @@ class DecodeTableCache:
     def get_or(self, key, build: Callable):
         entry = self._entries.get(key)
         if entry is not None:
+            DecodeTableCache.hits += 1
             self._entries.move_to_end(key)
             return entry
+        DecodeTableCache.misses += 1
         entry = self._entries[key] = build()
         if len(self._entries) > self._capacity:
+            DecodeTableCache.evictions += 1
             self._entries.popitem(last=False)
         return entry
 
     def clear(self) -> None:
         self._entries.clear()
+
+
+class CodecCounters(PerfCounters):
+    """The `ec_codec` perf block: the decode-table caches' hits, misses
+    and evictions and the codec kernels' launches. Nothing is counted
+    here: `dump()` reads the counts where the hot path keeps them (the
+    `DecodeTableCache` class attributes, the wrappers' `.launches`), so
+    they are process-wide and always on."""
+
+    def __init__(self):
+        super().__init__("ec_codec")
+        for key, desc in (
+            ("decode_table_hits", "decode-table lookups that found their tables"),
+            ("decode_table_misses", "decode-table lookups that built their tables"),
+            ("decode_table_evictions", "decode tables dropped at the cache's capacity"),
+        ):
+            self.add_u64_counter(key, desc)
+        for name in self.wrappers():
+            self.add_u64_counter(f"{name}_launches", f"{name} kernel launches")
+
+    @staticmethod
+    def wrappers() -> dict:
+        """The codec kernels' wrappers by name, each counting its launches
+        in `.launches` (a CPU tensor runs the plain version, counted by none)."""
+        from ceph_tpu_torch.ops import gf_bitplane, gf_cuda
+
+        return {"gf_matmul_packed": gf_cuda.gf_matmul_packed,
+                "xor_reduce_words": gf_cuda.xor_reduce_words,
+                "gf_matmul_bitplane": gf_bitplane.gf_matmul_bitplane,
+                "xor_reduce": gf_bitplane.xor_reduce}
+
+    def dump(self) -> dict:
+        self.set("decode_table_hits", DecodeTableCache.hits)
+        self.set("decode_table_misses", DecodeTableCache.misses)
+        self.set("decode_table_evictions", DecodeTableCache.evictions)
+        for name, wrapper in self.wrappers().items():
+            self.set(f"{name}_launches", int(wrapper.launches))
+        return super().dump()
+
+
+#: the process's `ec_codec` block; a daemon adds it to its perf collection
+codec_perf = CodecCounters()
 
 
 def profile_to_int(profile: ErasureCodeProfile, name: str, default: int) -> int:

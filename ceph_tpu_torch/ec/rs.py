@@ -31,6 +31,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ceph_tpu_torch.common.tracer import hot_spans
 from ceph_tpu_torch.device import resolve_device
 from ceph_tpu_torch.ec import matrices
 from ceph_tpu_torch.ec.interface import (
@@ -221,8 +222,16 @@ class ErasureCodeRs(ErasureCode):
 
     # -- compute ------------------------------------------------------------
 
+    # Each entry and the decode-table lookup is a span of `hot_spans`
+    # (named "ec.<method>", "ec.decode_table") while `bench_profile` is on.
+
     def encode_array(self, data) -> torch.Tensor:
         """(B, k, L) uint8 -> (B, m, L) parity, a tensor on the codec's device."""
+        if hot_spans.on:
+            return hot_spans.call("ec.encode_array", self._encode_array, data)
+        return self._encode_array(data)
+
+    def _encode_array(self, data) -> torch.Tensor:
         data = to_device(data, torch.uint8, self.device)
         if self._xor_ok:
             return bp.xor_reduce(data)
@@ -233,6 +242,11 @@ class ErasureCodeRs(ErasureCode):
         """Memoized decode matrices for an erasure signature, in host and
         device form — the analogue of the reference's LRU decode-table
         cache (ErasureCodeIsaTableCache.cc:234-296)."""
+        if hot_spans.on:
+            return hot_spans.call("ec.decode_table", self._decode_bitmatrix, present, targets)
+        return self._decode_bitmatrix(present, targets)
+
+    def _decode_bitmatrix(self, present: Sequence[int], targets: Sequence[int]) -> CodingTables:
         def build():
             dm = matrices.decode_matrix(
                 self._gen, self.k, list(present), list(targets)
@@ -243,6 +257,12 @@ class ErasureCodeRs(ErasureCode):
         return self._decode_cache.get_or(key, build)
 
     def decode_array(self, present, targets, survivors) -> torch.Tensor:
+        if hot_spans.on:
+            return hot_spans.call("ec.decode_array", self._decode_array, present, targets,
+                                  survivors)
+        return self._decode_array(present, targets, survivors)
+
+    def _decode_array(self, present, targets, survivors) -> torch.Tensor:
         if len(present) < self.k:
             raise ErasureCodeError(errno.EIO, "not enough survivors")
         # a strided view: the kernel reads the first k rows in place
@@ -260,6 +280,11 @@ class ErasureCodeRs(ErasureCode):
         (ceph_tpu_torch.ops.gf_cuda). On a CPU codec the same call runs the
         kernel's plain version.
         """
+        if hot_spans.on:
+            return hot_spans.call("ec.encode_words", self._encode_words, words)
+        return self._encode_words(words)
+
+    def _encode_words(self, words) -> torch.Tensor:
         words = to_device(words, torch.int32, self.device)
         if self._xor_ok:
             return gc.xor_reduce_words(words)
@@ -269,6 +294,12 @@ class ErasureCodeRs(ErasureCode):
     def decode_words(self, present, targets, words) -> torch.Tensor:
         """Planar decode: words holds the first k survivor chunks (logical ids
         `present`, ascending); returns len(targets) rebuilt chunk rows."""
+        if hot_spans.on:
+            return hot_spans.call("ec.decode_words", self._decode_words, present, targets,
+                                  words)
+        return self._decode_words(present, targets, words)
+
+    def _decode_words(self, present, targets, words) -> torch.Tensor:
         if len(present) < self.k:
             raise ErasureCodeError(errno.EIO, "not enough survivors")
         words = to_device(words, torch.int32, self.device)[: self.k]

@@ -31,9 +31,10 @@ float32 holds exactly.
 Both CUDA paths read the input in place through its batch and row strides
 (the last axis must be contiguous), so a slice such as `survivors[:, :k, :]`
 is not copied first. Nothing selects between kernel and plain version but
-the tensor's device, and nothing falls back. The numpy oracle lives in
-ceph_tpu_torch.ops.gf; tests assert bit-exact equality with it and with the
-JAX package.
+the tensor's device, and nothing falls back. On a CUDA tensor each call is
+a "gf.wrapper" span of `common.tracer.hot_spans`, as in `gf_cuda`. The
+numpy oracle lives in ceph_tpu_torch.ops.gf; tests assert bit-exact
+equality with it and with the JAX package.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ceph_tpu_torch.common.tracer import hot_spans
 from ceph_tpu_torch.device import resolve_device
 from ceph_tpu_torch.ops import gf_cuda as gc
 from ceph_tpu_torch.ops.gf import matrix_to_bitmatrix
@@ -139,6 +141,12 @@ def gf_matmul_bitplane(
     strides, its last axis contiguous. It raises on anything the kernel does
     not take. Each launch adds one to `gf_matmul_bitplane.launches`.
     """
+    if hot_spans.on and getattr(data, "is_cuda", False):
+        return hot_spans.call("gf.wrapper", _gf_matmul_bitplane, bitmat, data, tables)
+    return _gf_matmul_bitplane(bitmat, data, tables)
+
+
+def _gf_matmul_bitplane(bitmat, data, tables) -> torch.Tensor:
     r, k = _check_matmul(bitmat, data)
     if not data.is_cuda:
         if data.device.type == "cpu":
@@ -198,6 +206,12 @@ def xor_reduce(data: torch.Tensor) -> torch.Tensor:
     launches csrc/xor_rowmatmul.cu through `gf_cuda.launch_xor_rows` and
     adds one to `xor_reduce.launches`.
     """
+    if hot_spans.on and getattr(data, "is_cuda", False):
+        return hot_spans.call("gf.wrapper", _xor_reduce, data)
+    return _xor_reduce(data)
+
+
+def _xor_reduce(data) -> torch.Tensor:
     _check_xor(data)
     if data.device.type == "cpu":
         return xor_reduce_plain(data)

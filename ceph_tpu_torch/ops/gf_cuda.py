@@ -20,6 +20,10 @@ csrc/xor_rowmatmul.cu, the XOR kernels: `launch_row_lists` binds its
 row-list kernel for `ec.bitmatrix.xor_rowmatmul`; its XOR-of-rows kernel
 (`xor_rows_launch`) serves `xor_reduce_words` and, through
 `launch_xor_rows`, `gf_bitplane.xor_reduce`.
+
+While `bench_profile` is on, a wrapper's call on a CUDA tensor is the span
+"gf.wrapper" of `common.tracer.hot_spans` (here and in `gf_bitplane`), and
+the launcher's ctypes call inside it (`on_device`) the span "gf.launch".
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ceph_tpu_torch.common.tracer import hot_spans
 from ceph_tpu_torch.ops import cuda_build
 
 __all__ = [
@@ -303,7 +308,10 @@ def on_device(device: int, fn, *args) -> int:
     if device != torch._C._cuda_getDevice():
         with torch.cuda.device(device):
             return on_device(device, fn, *args)
-    return fn(*args, torch._C._cuda_getCurrentRawStream(device))
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    if hot_spans.on:
+        return hot_spans.call("gf.launch", fn, *args, stream)
+    return fn(*args, stream)
 
 
 def _xor_lib() -> ctypes.CDLL:
@@ -414,6 +422,12 @@ def gf_matmul_packed(
     memoised on it), and raises on anything the kernel does not take. Each
     launch adds one to `gf_matmul_packed.launches`.
     """
+    if hot_spans.on and getattr(words, "is_cuda", False):
+        return hot_spans.call("gf.wrapper", _gf_matmul_packed, packed_mat, words, tables)
+    return _gf_matmul_packed(packed_mat, words, tables)
+
+
+def _gf_matmul_packed(packed_mat, words, tables) -> torch.Tensor:
     r, k = _check_shapes(packed_mat, words)
     if not words.is_cuda:
         if words.device.type == "cpu":
@@ -464,6 +478,12 @@ def xor_reduce_words(words: torch.Tensor) -> torch.Tensor:
     csrc/xor_rowmatmul.cu's XOR-of-rows kernel on its bytes, read as a
     (1, k, 4 N4) uint8 block, and adds one to `xor_reduce_words.launches`.
     """
+    if hot_spans.on and getattr(words, "is_cuda", False):
+        return hot_spans.call("gf.wrapper", _xor_reduce_words, words)
+    return _xor_reduce_words(words)
+
+
+def _xor_reduce_words(words) -> torch.Tensor:
     if not isinstance(words, torch.Tensor):
         raise TypeError("xor_reduce_words takes a torch tensor")
     if words.dim() != 2 or words.dtype != torch.int32 or words.shape[0] < 1:

@@ -470,6 +470,11 @@ class OSDService(Dispatcher):
         # wire-path counters (frames out, corked runs, envelope format)
         # surface through the same dump/Prometheus path
         self.perf_collection.add(self.messenger.perf)
+        # the codec's decode-table hits/misses/evictions and kernel
+        # launches (process-wide, read at dump time)
+        from ceph_tpu_torch.ec.interface import codec_perf
+
+        self.perf_collection.add(codec_perf)
         for key, desc in (
             ("subop_batch_tx", "coalesced multi-op frames sent to peers"),
             ("subop_batch_tx_ops", "sub-ops that rode a coalesced frame"),

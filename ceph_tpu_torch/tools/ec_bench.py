@@ -24,13 +24,22 @@ Workloads:
 Every plugin of the registry runs here: the RS matrix techniques, jerasure's
 liberation / blaum_roth / liber8tion, shec, lrc and clay. Chunk ids given
 with --erased are physical ids, as in the byte API.
+
+Profiling (the `bench_profile` knob, e.g. CEPH_TPU_BENCH_PROFILE=true): the
+loop runs under torch.profiler (the device's activity; the host's on a CPU
+codec) with the codec's hot-path spans on (`common.tracer.hot_spans`), and
+one Chrome trace is written into `bench_profile_trace_dir`: the profiler's
+events and the spans as host "X" events, on the trace's clock.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import random
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -184,15 +193,66 @@ def run_decode(ec, args) -> float:
     return time.perf_counter() - t0
 
 
+def spans_as_trace_events(records: list[tuple], offset_ns: int, base_ns: int) -> list[dict]:
+    """Hot-path span records (`perf_counter_ns` stamps) as Chrome-trace "X"
+    events on a trace whose `ts` counts microseconds after `base_ns` on the
+    wall clock; `offset_ns` is the wall clock less `perf_counter_ns`."""
+    pid = os.getpid()
+    return [{"ph": "X", "cat": "hot_span", "name": name, "pid": pid, "tid": "codec spans",
+             "ts": (start + offset_ns - base_ns) / 1e3, "dur": (end - start) / 1e3,
+             "args": {"parent": parent}}
+            for name, parent, start, end in records]
+
+
+def profiled(run, device, trace_dir: str) -> tuple[float, str]:
+    """run() under torch.profiler with the hot-path spans on; returns its
+    result and the path of the Chrome trace written into `trace_dir`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ceph_tpu_torch.common.tracer import hot_spans
+
+    activity = ProfilerActivity.CUDA if device.type == "cuda" else ProfilerActivity.CPU
+    hot_spans.drain()
+    with profile(activities=[activity]) as prof:
+        p0 = time.perf_counter_ns()
+        wall = time.time_ns()
+        offset_ns = wall - (p0 + time.perf_counter_ns()) // 2
+        elapsed = run()
+    records = hot_spans.drain()
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, f"ec_bench.{os.getpid()}.trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        doc = json.load(f)
+    base_ns = int(doc.get("baseTimeNanoseconds", 0))
+    doc["traceEvents"] += spans_as_trace_events(records, offset_ns, base_ns)
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return elapsed, path
+
+
 def main(argv=None) -> int:
     args = parse_args(argv if argv is not None else sys.argv[1:])
+    from ceph_tpu_torch.common.config import config
     from ceph_tpu_torch.ec.registry import factory
 
     ec = factory(args.plugin, build_profile(args.parameter), device=args.device)
-    if args.workload == "encode":
-        elapsed = run_encode(ec, args)
+
+    def run():
+        if args.workload == "encode":
+            return run_encode(ec, args)
+        return run_decode(ec, args)
+
+    # profiling hook (SURVEY §5), the analogue of the reference's LTTng
+    # tracepoints around the op loop
+    if config.get("bench_profile"):
+        trace_dir = (config.get("bench_profile_trace_dir")
+                     or os.path.join(tempfile.gettempdir(), "ceph_tpu_torch_trace"))
+        elapsed, path = profiled(run, ec.device, trace_dir)
+        print(f"# torch.profiler trace with the codec's spans written to {path}",
+              file=sys.stderr)
     else:
-        elapsed = run_decode(ec, args)
+        elapsed = run()
     kib = args.iterations * (args.size // 1024) * max(1, args.batch)
     print(f"{elapsed:.6f}\t{kib}")
     return 0

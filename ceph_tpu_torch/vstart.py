@@ -228,12 +228,9 @@ class KernelCounters:
 
     @staticmethod
     def wrappers() -> dict:
-        from ceph_tpu_torch.ops import gf_bitplane, gf_cuda
+        from ceph_tpu_torch.ec.interface import CodecCounters
 
-        return {"gf_matmul_packed": gf_cuda.gf_matmul_packed,
-                "xor_reduce_words": gf_cuda.xor_reduce_words,
-                "gf_matmul_bitplane": gf_bitplane.gf_matmul_bitplane,
-                "xor_reduce": gf_bitplane.xor_reduce}
+        return CodecCounters.wrappers()
 
     def dump(self) -> dict:
         return {k: int(w.launches) for k, w in self.wrappers().items()}

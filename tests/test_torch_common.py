@@ -261,6 +261,10 @@ def config_layering_validation_observers(ns):
     assert seen == [("ms_inject_socket_failures", 10)]
     schema = cfg.dump_schema()
     assert len(schema) == len(ns.config.SCHEMA)
+    # the two profiling knobs' descriptions name each package's own
+    # profiler (jax.profiler, torch.profiler); all else must agree
+    for name in ("bench_profile", "bench_profile_trace_dir"):
+        assert "profiler" in schema[name].pop("description")
     return obs, seen, schema
 
 

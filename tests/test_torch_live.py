@@ -413,6 +413,13 @@ def test_client_and_cluster_of_different_packages(client_pkg, cluster_pkg):
             direct = sum(o.perf.dump().get("read_shard_direct", 0)
                          for o in cluster.osds.values())
             assert direct > 0
+            if cluster_pkg == PORT:
+                # `perf dump` carries the codec's block beside the OSD's
+                for o in cluster.osds.values():
+                    codec = o.perf_collection.dump()["ec_codec"]
+                    assert {"decode_table_hits", "decode_table_misses",
+                            "decode_table_evictions", "gf_matmul_packed_launches",
+                            "gf_matmul_bitplane_launches"} <= set(codec)
             await foreign.shutdown()
             await native.shutdown()
         finally:
